@@ -1,10 +1,10 @@
-// Native IO runtime for the TPU ocean framework.
+// Native IO runtime for the ocean framework.
 //
 // The reference's IO layer is Fortran MPI-IO (tools/io.f90: per-block
 // subarray collectives against flat real4 record files) plus ASCII mask
-// parsing (read_global_mask). On a TPU host there is one process per
-// host, so the native layer is a straight high-throughput implementation
-// of the same file formats:
+// parsing (read_global_mask). With one process per host, the native
+// layer is a straight high-throughput implementation of the same file
+// formats:
 //
 //  - ASCII land/sea masks: one header line, ny rows of nx digits,
 //    top row first (io.f90:36-82 format);

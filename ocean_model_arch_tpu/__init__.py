@@ -1,6 +1,6 @@
-"""TPU-native shallow-water (barotropic) ocean modeling framework.
+"""Shallow-water (barotropic) ocean modeling framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the PSyKAl
+A from-scratch JAX/XLA re-design of the capabilities of the PSyKAl
 Fortran reference (Andrcraft9/ocean_model_arch, INMOM barotropic core):
 
 - Arakawa-C finite-difference shallow-water dynamics (ssh, u, v) with
@@ -12,13 +12,15 @@ Fortran reference (Andrcraft9/ocean_model_arch, INMOM barotropic core):
 - 2D device-mesh SPMD via jax.shard_map with ppermute halo exchange
   (replacing the reference's MPI block decomposition + hand-packed halo
   sync, shared/mpp/*).
-- Fused Pallas TPU kernels for the hot stencil path (replacing the
-  reference's CUDA Fortran mirror, gpu/*).
+- A fused whole-step update for the hot stencil path (replacing the
+  reference's CUDA Fortran mirror, gpu/*): plain jnp that carries only
+  the 6 prognostic fields, compiled by XLA.
 
 The package is organized as:
   config/    typed configs + reference-compatible .par file loaders
   core/      grid construction: masks, metrics, depths, state pytrees
-  ops/       the physics kernels (pure jnp on padded arrays + pallas)
+  ops/       the physics kernels (pure jnp on padded arrays + the fused
+             step)
   parallel/  mesh, sharding, halo exchange, decomposition diagnostics
   model/     step composition and the time-loop driver
   io/        mask/GrADS/checkpoint IO

@@ -12,7 +12,7 @@ import sys
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="ocean_model_arch_tpu",
-        description="TPU-native shallow-water ocean model")
+        description="shallow-water ocean model (JAX)")
     p.add_argument("config_dir", nargs="?", default=".",
                    help="directory with basin.par/sw.par/parallel.par/"
                         "ocean_run.par")
@@ -22,6 +22,8 @@ def main(argv=None):
                    help="device mesh as PXxPY (e.g. 2x4), or 'auto' to "
                         "pick the wet-balance-optimal factorization of "
                         "all visible devices (choose_mesh_dims)")
+    p.add_argument("--results", default=None,
+                   help="output directory (default: <config_dir>/RESULTS)")
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--ckpt-format", choices=("npz", "orbax"),
                    default="npz",
@@ -64,7 +66,8 @@ def main(argv=None):
             cfg, parallel=dataclasses.replace(cfg.parallel,
                                               mesh_x=px, mesh_y=py))
 
-    model = OceanModel(cfg, base_dir=args.config_dir)
+    model = OceanModel(cfg, base_dir=args.config_dir,
+                       results_dir=args.results)
     model.run(checkpoint_path=args.checkpoint, verbose=not args.quiet,
               checkpoint_format=args.ckpt_format)
     return 0

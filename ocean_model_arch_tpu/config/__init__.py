@@ -30,9 +30,8 @@ class Precision:
 
     The reference keeps prognostic state in real8 and grid metrics in real4
     (e.g. vel_ssh.f90:76-90 mixes wp8 state with wp4 metrics). ``f64()``
-    reproduces exactly that for validation; ``f32()`` is the TPU production
-    mode (float32 state AND metrics — double precision is emulated and slow
-    on TPU).
+    reproduces exactly that for validation; ``f32()`` is the production
+    mode (float32 state AND metrics), which the fused step runs.
     """
     state_dtype: np.dtype = np.dtype(np.float64)
     metric_dtype: np.dtype = np.dtype(np.float32)

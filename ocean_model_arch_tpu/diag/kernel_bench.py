@@ -3,7 +3,7 @@ table, mpp.f90:342-384 — flagged unsupported in the reference; supported
 here).
 
 Times every physics kernel of the jnp layer standalone under jit on the
-current backend, and the fused whole-step kernel for comparison.
+current backend.
 """
 
 from __future__ import annotations
@@ -34,8 +34,8 @@ def _time(fn, *args, reps=10):
 
 def run(grid: Grid, cfg: ModelConfig, state: SWState, tau=1.0) -> dict:
     """Returns {kernel_name: seconds_per_call} for the 11 SW + 3 tracer
-    kernels (each jitted standalone — includes its own HBM traffic, which
-    the fused kernel amortizes)."""
+    kernels (each jitted standalone — includes its own memory traffic,
+    which the fused step amortizes)."""
     hp = GlobalHalo(grid.periodic_x, grid.periodic_y)
     ex = hp.ex
     s, g = state, grid

@@ -43,17 +43,27 @@ def load_checkpoint(path: str) -> tuple[SWState, int]:
 
 # ---------------------------------------------------------------------
 # Sharded (multi-host) checkpointing via orbax/tensorstore: each process
-# writes its own shards — the TPU-native analog of the reference's
-# collective MPI-IO (tools/io.f90:276-498), where every rank writes its
-# block subarrays into one file. No host gather, restores with the
-# target sharding in place.
+# writes its own shards — the analog of the reference's collective MPI-IO
+# (tools/io.f90:276-498), where every rank writes its block subarrays
+# into one file. No host gather, restores with the target sharding in
+# place. orbax is optional: only these two functions import it.
+
+def _orbax():
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise ImportError(
+            "sharded checkpoints (--ckpt-format orbax) need the "
+            "'orbax-checkpoint' package, which is not installed; use the "
+            "default npz format") from e
+    return ocp
+
 
 def save_checkpoint_sharded(path: str, state: SWState, step: int) -> None:
     """Write the full prognostic pytree + step counter with orbax.
     ``state`` may hold sharded jax.Arrays over any mesh; every process
     participates (call from all hosts)."""
-    import orbax.checkpoint as ocp
-
+    ocp = _orbax()
     tree = {f.name: getattr(state, f.name)
             for f in dataclasses.fields(state)
             if getattr(state, f.name) is not None}
@@ -69,7 +79,7 @@ def load_checkpoint_sharded(path: str, shardings=None
     that placement (each process reads only its shards); unlisted fields
     restore as host arrays."""
     import jax
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     ckptr = ocp.PyTreeCheckpointer()
     if shardings:

@@ -1,8 +1,8 @@
-"""Driver for the fused Pallas whole-step kernel (production fast path).
+"""Driver for the fused whole-step update (ops/fused_step.py).
 
-Wraps ops/pallas/fused_step.py with layout embedding, precondition checks
-(falls back to the general jnp path when unsupported), scan-based multi-
-step running, and SWState conversion so outputs/checkpoints stay
+Wraps the fused step with layout embedding, precondition checks (the
+general jnp composition covers what it does not), scan-based multi-step
+running, and SWState conversion so outputs/checkpoints stay
 interchangeable with the reference formats.
 """
 
@@ -16,33 +16,20 @@ import numpy as np
 from ..config import ModelConfig
 from ..core.grid import Grid
 from ..core.state import SWState
-from ..ops.pallas import fused_step as fsk
+from ..ops import fused_step as fsk
 from ..ops import sw_kernels as swk
 
 
 class FusedSWModel:
-    """Shallow-water core on the fused kernel. Carries only the 6
-    prognostic fields; depths/masks are recomputed in-kernel."""
+    """Shallow-water core on the fused step. Carries only the 6
+    prognostic fields; depths/masks are recomputed every step."""
 
     def __init__(self, grid: Grid, cfg: ModelConfig, tau: float,
-                 tx: int | None = None, interpret: bool = False,
-                 vmem_limit_bytes: int | None = None,
                  mu_const: float = 0.0, static_rslu: bool = False,
                  steps_per_call: int = 1,
-                 tile_guard: bool | None = None,
-                 ty: int | None = None, my: int = 128,
-                 stacked: bool = False, rcp_div: bool = False,
-                 persistent: bool = False,
-                 resident_planes: bool = False,
                  elide_sel: bool | None = None, q4: bool | None = None,
                  share_prev: bool | None = None,
-                 fast2d: bool | None = None,
-                 lane_window: bool | None = None):
-        """``ty``: split the lane extent into (tx x ty) tiles with
-        my-lane margins so the wet guard elides land in BOTH axes —
-        worth it on realistic coastline masks (Azov: 35-45% of tiles are
-        all-land); on mostly-wet basins the margin recompute overhead
-        makes full-lane x-strips (ty=None) faster."""
+                 fast2d: bool | None = None):
         if grid.periodic_x or grid.periodic_y:
             raise ValueError("fused path: periodic boundaries unsupported")
         self.grid = grid
@@ -50,52 +37,15 @@ class FusedSWModel:
         self.tau = float(tau)
         self.n_tracers = (cfg.sw.tracer_num if cfg.sw.use_tracers > 0
                           else 0)
-        if tx is None:
-            # auto tile size: under the round-5 vmem-cap regime LARGER
-            # x-tiles win on big domains (chip sweep: tx 64/128/192/256
-            # = 18.5/19.4/19.6/19.8 Gpts/s; >=384 exceeds the compile
-            # envelope). Take the largest candidate that adds NO
-            # padding over the historical tx=64 rounding; tracer
-            # configs keep 64 (their extra windows can outgrow the
-            # vmem cap at 256).
-            tx = 64
-            xuni = all(
-                np.array_equal(f := np.asarray(getattr(grid, n)),
-                               np.broadcast_to(f[:1], f.shape))
-                for n in ("dx", "dy", "dxt", "dyt", "dxh", "dyh",
-                          "dxb", "dyb", "rlh_s"))
-            flat_hr = np.ptp(np.asarray(grid.hhq_rest)) == 0.0
-            if ty is None and self.n_tracers == 0 and mu_const == 0.0 \
-                    and static_rslu and flat_hr:
-                # only the MEASURED envelopes: pure-SW flat-bathymetry
-                # window sets under the 36MB cap. x-uniform: tx=256
-                # (sweep 64/128/192/256 = 18.5/19.4/19.6/19.8; 256 sits
-                # at the cap's compile floor). fast2d (2D metrics, more
-                # streamed planes): tx=128 (17.8/18.1 at 64/128; 192+
-                # exceeds the compile envelope). Extra windows
-                # (tracers, viscosity, varying hr) and the uncapped
-                # non-fast graph keep the safe tx=64.
-                cands = ((256, 128) if xuni
-                         else ((128,) if fast2d is not False else ()))
-                x64 = -(-grid.nx // 64) * 64
-                for cand in cands:
-                    if -(-grid.nx // cand) * cand == x64:
-                        tx = cand
-                        break
-        self.tx = tx
-        self.ty, self.my = ty, my
-        if ty is not None:
-            self.lay = fsk.make_layout_2d(grid.nx, grid.ny, tx, ty, my,
-                                          steps_per_call=steps_per_call)
-        else:
-            self.lay = fsk.make_layout(grid.nx, grid.ny, tx,
-                                       steps_per_call=steps_per_call)
+        self.lay = fsk.make_layout(grid.nx, grid.ny,
+                                   steps_per_call=steps_per_call)
         m = self.lay.margin
         # x-uniform metrics ride as latitude profiles (free broadcast);
-        # bipolar/curvilinear grids stream full metric planes — by
-        # default through the fast-2D kernel (round 5): the fast-mode
-        # restructurings with pointwise planes, streaming ONLY the rows
-        # this config consumes (fast2d_met_rows) instead of all 16
+        # bipolar/curvilinear grids read full metric planes — by default
+        # through the fast-2D mode: the fast restructurings with
+        # pointwise planes, keeping ONLY the rows this config consumes
+        # (fast2d_met_rows) instead of all 16
+        met22 = None
         try:
             met = fsk.metrics_profile_from_grid(grid, self.lay)
             self.metrics_2d = False
@@ -115,7 +65,6 @@ class FusedSWModel:
                                            self.n_tracers)
                 self._met_map = {r: i for i, r in enumerate(rows)}
                 met = met22[list(rows)]
-                self._met22 = met22        # plane building below
             else:
                 met = met22
                 self._met_map = None
@@ -129,40 +78,36 @@ class FusedSWModel:
         # stress/diffusion branch
         self.mu_const = float(mu_const)
         # spatially-constant bathymetry (the reference's shipped default:
-        # flat 100 m) folds the hrludxdy static plane into a scalar —
-        # one fewer streamed window per tile (fast mode + ffs only)
+        # flat 100 m) folds the hrludxdy static plane into a scalar
+        # (fast mode + ffs only)
         hr_np = np.asarray(grid.hhq_rest, np.float32)
         self.hr_const = (float(hr_np.flat[0])
                          if np.ptp(hr_np) == 0.0 else None)
-        # round-5 fast-mode arithmetic reductions (fused_step.py),
-        # ALL default ON in fast mode: elide_sel / q4 are exact in real
-        # arithmetic (~1 ulp FMA-contraction drift); share_prev
-        # REGROUPS the chained-step prev-depth interps (f32 round-off
-        # vs the two-interp order — measured +1% on chip)
+        # fast-mode arithmetic reductions (fused_step.py), ALL default ON
+        # in fast mode: elide_sel / q4 are exact in real arithmetic
+        # (~1 ulp FMA-contraction drift); share_prev REGROUPS the
+        # chained-step prev-depth interps (f32 round-off vs the
+        # two-interp order)
         fast = bool(static_rslu) and (not self.metrics_2d
                                       or self.fast2d)
-        auto = fast and not persistent   # the persistent probe builder
-        self.elide_sel = auto if elide_sel is None else bool(elide_sel)
-        self.q4 = auto if q4 is None else bool(q4)
-        self.share_prev = (auto if share_prev is None
+        self.elide_sel = fast if elide_sel is None else bool(elide_sel)
+        self.q4 = fast if q4 is None else bool(q4)
+        self.share_prev = (fast if share_prev is None
                            else bool(share_prev)) and steps_per_call > 1
         if (self.elide_sel or self.q4 or self.share_prev) and not fast:
             raise ValueError("elide_sel/q4/share_prev require fast mode "
                              "(static_rslu=True, x-uniform metrics or "
                              "fast2d)")
-        if persistent and (self.elide_sel or self.q4 or self.share_prev):
-            raise ValueError("persistent probe mode predates the round-5 "
-                             "reductions; pass elide_sel=q4=False")
         if static_rslu:
             # fast mode: fold the interpolation metric factors into the
             # rslu planes (one multiply per depth interpolation); q4
             # additionally folds the advection 1/4 into the u/v recips
-            # (exact power-of-two scale, compensated in-kernel)
+            # (exact power-of-two scale, compensated in the step)
             qs = np.float32(0.25) if self.q4 else np.float32(1.0)
             if self.fast2d:
-                m22 = self._met22
-                dxdy = m22[0] * m22[1]               # (Xs, Ys) planes
-                recips = (m22[10] * qs, m22[11] * qs, m22[14] * m22[15])
+                dxdy = met22[0] * met22[1]           # (Xs, Ys) planes
+                recips = (met22[10] * qs, met22[11] * qs,
+                          met22[14] * met22[15])
             elif self.metrics_2d:
                 dxdy = met[0] * met[1]               # (Xs, Ys) planes
                 recips = None
@@ -179,77 +124,19 @@ class FusedSWModel:
                 fast2d=self.fast2d)
             rslu = fsk.static_planes(lu_s, hr_s, dxdy, names,
                                      interp_recips=recips)
-            if self.fast2d:
-                del self._met22    # ~150MB host RAM at production size
         else:
             rslu = None
+        del met22
         self.steps_per_call = int(steps_per_call)
-        n_tiles = self.lay.X // tx
-        if ty is not None:
-            n_ty = (self.lay.Ys - 2 * my) // ty
-            wet2d = np.array(
-                [(lu_s[m + i * tx: m + (i + 1) * tx,
-                       my + j * ty: my + (j + 1) * ty] > 0.5).any()
-                 for i in range(n_tiles) for j in range(n_ty)], np.int32)
-            if tile_guard is None:
-                tile_guard = not wet2d.all()
-            self._tile_wet2d = wet2d
-        elif tile_guard is None:
-            # auto: guard only when some x-strip is all-land (realistic
-            # coastline masks — decomposition.f90:578's weight-0 drop);
-            # on all-wet basins the guard is pure overhead
-            tile_guard = any(
-                not (lu_s[m + i * tx: m + (i + 1) * tx]
-                     > 0.5).any() for i in range(n_tiles))
-        self.tile_guard = bool(tile_guard)
-        if rcp_div and not fast:
-            # the flag is only consulted in the kernel's fast branch;
-            # silently handing back exact divides would misreport what
-            # was measured
-            raise ValueError("rcp_div requires fast mode "
-                             "(static_rslu=True and 1D metrics)")
-        if fast and vmem_limit_bytes is None and not interpret:
-            # small vmem caps measured strictly faster on BOTH fast
-            # kernels, and the production-extent fast2d program only
-            # compiles capped (fused_step.FAST_VMEM_CAP notes)
-            vmem_limit_bytes = fsk.FAST_VMEM_CAP
-        # dynamic per-tile lane windows (round 5): on coastline masks
-        # whose per-strip wet spans leave whole 128-lane columns of
-        # land, windows shrink to the common span width and skip them
-        # (fused_step.lane_windows_from_mask). Auto-on when it saves
-        # at least one 128-lane column; needs alias_io so unwritten
-        # lanes persist as the carried land zeros.
-        lane_offs = None
-        self.lane_w = None
-        lw_ok = (fast and ty is None and not stacked
-                 and not resident_planes and not persistent
-                 and lane_window is not False)
-        if lw_ok:
-            offs, W = fsk.lane_windows_from_mask(lu_s, self.lay,
-                                                 self.steps_per_call)
-            if W < self.lay.Ys:
-                lane_offs, self.lane_w = offs, W
-            elif lane_window:
-                raise ValueError("lane_window cannot save lanes on "
-                                 "this mask (every span covers the "
-                                 "full lane extent)")
-        elif lane_window:
-            raise ValueError("lane_window requires the fast x-strip "
-                             "per-field streamed-plane form")
-        n_met = int(met.shape[0]) if self.metrics_2d else 16
         self.step6 = fsk.build_fused_sw_step(
             self.lay, lu_s, hr_s, met, self.tau, cfg.sw.time_smooth,
             cfg.sw.full_free_surface, cfg.sw.trans_terms, cfg.sw.ksw_lat,
-            self.mu_const, n_tracers=self.n_tracers, interpret=interpret,
-            vmem_limit_bytes=vmem_limit_bytes, metrics_2d=self.metrics_2d,
-            rslu_planes=rslu, steps_per_call=self.steps_per_call,
-            tile_guard=self.tile_guard, ty=ty, my=my,
-            hr_const=self.hr_const, stacked=stacked, rcp_div=rcp_div,
-            resident_planes=resident_planes, elide_sel=self.elide_sel,
-            q4=self.q4, share_prev=self.share_prev, fast2d=self.fast2d,
-            met_map=self._met_map, n_met=n_met,
-            lane_offsets=lane_offs, lane_w=self.lane_w,
-            alias_io=lane_offs is not None)
+            self.mu_const, n_tracers=self.n_tracers,
+            metrics_2d=self.metrics_2d, rslu_planes=rslu,
+            steps_per_call=self.steps_per_call, hr_const=self.hr_const,
+            elide_sel=self.elide_sel, q4=self.q4,
+            share_prev=self.share_prev, fast2d=self.fast2d,
+            met_map=self._met_map)
         if self.elide_sel:
             # land-zero invariant the elided selects rely on: mask the
             # velocity/tracer carriers once at pack time (bit-exact for
@@ -260,22 +147,6 @@ class FusedSWModel:
             self._wlcu = jnp.asarray(wlcu)
             self._wlcv = jnp.asarray(wlcv)
             self._wlu = jnp.asarray(wlu)
-        self.stacked = bool(stacked)
-        self._lu_s = jnp.asarray(lu_s)
-        # persistent-VMEM megakernel mode: the whole state stays in VMEM
-        # scratch for a full run_steps window (fused_step.py::
-        # build_persistent_sw_step); kernels are built lazily per window
-        # length. Requires the fast profile-metrics envelope.
-        self.persistent = bool(persistent)
-        if persistent:
-            if self.metrics_2d or stacked or ty is not None:
-                raise ValueError("persistent mode: x-uniform metrics, "
-                                 "per-field windows, x-strip tiling only")
-            self._pbuild = dict(
-                lay=self.lay, lu_s=lu_s, hr_s=hr_s, met=met,
-                rslu=rslu, interpret=interpret, rcp_div=rcp_div,
-                vmem=vmem_limit_bytes)
-            self._pcalls = {}
 
     # -- state conversion ------------------------------------------------
     def validate_state(self, state: SWState) -> None:
@@ -284,11 +155,10 @@ class FusedSWModel:
         if mu.size and not np.all(mu == mu.flat[0]):
             raise ValueError("fused path requires spatially-constant mu")
         if mu.size and float(mu.flat[0]) != self.mu_const:
-            raise ValueError("state.mu does not match kernel mu_const")
+            raise ValueError("state.mu does not match the step's mu_const")
 
     def pack(self, state: SWState):
-        """SWState -> (6 + 2*T)-tuple in fused layout (jit-safe); the
-        stacked form returns ONE (6+2T, Xs, Ys) array instead."""
+        """SWState -> (6 + 2*T)-tuple in fused layout (jit-safe)."""
         e = lambda a: fsk.embed(self.lay, a)
         if self.elide_sel:
             carry = [e(state.ssh), e(state.sshp),
@@ -305,8 +175,6 @@ class FusedSWModel:
             for t in range(self.n_tracers):
                 carry.append(e(state.ff[t]))
                 carry.append(e(state.ffp[t]))
-        if self.stacked:
-            return jnp.stack(carry)
         return tuple(carry)
 
     def unpack(self, s6, template: SWState) -> SWState:
@@ -332,67 +200,41 @@ class FusedSWModel:
     # -- running ---------------------------------------------------------
     def run_steps(self, s6, n_steps: int):
         """Scan the fused step; returns (s6', ok). ``ok`` accumulates the
-        kernel's in-VMEM per-step |ssh| max through the scan carry, so the
-        guard cadence matches the reference's every-step check_ssh_err
+        per-step |ssh| max through the scan carry, so the guard cadence
+        matches the reference's every-step check_ssh_err
         (vel_ssh.f90:40-67) — a transient blowup at ANY chained step of
         any window trips it. ``n_steps`` must be a multiple of
         ``steps_per_call``."""
-        if self.persistent:
-            if n_steps not in self._pcalls:
-                b = self._pbuild
-                cfg = self.cfg
-                self._pcalls[n_steps] = fsk.build_persistent_sw_step(
-                    b["lay"], b["lu_s"], b["hr_s"], b["met"], self.tau,
-                    cfg.sw.time_smooth, cfg.sw.full_free_surface,
-                    cfg.sw.trans_terms, cfg.sw.ksw_lat, self.mu_const,
-                    n_tracers=self.n_tracers, nsteps=n_steps,
-                    interpret=b["interpret"], rslu_planes=b["rslu"],
-                    hr_const=self.hr_const, rcp_div=b["rcp_div"],
-                    vmem_limit_bytes=b["vmem"])
-            s6, mx = self._pcalls[n_steps](*s6)
-            ok = jnp.max(mx) < swk.SSH_ERR_BOUND   # NaN compares False
-            return s6, ok
-
         spc = self.steps_per_call
         if n_steps % spc:
             raise ValueError(f"n_steps={n_steps} not a multiple of "
                              f"steps_per_call={spc}")
 
-        if self.stacked:
-            def body(c, _):
-                S, mx = c
-                S, tmax = self.step6(S)
-                return (S, jnp.maximum(mx, jnp.max(tmax))), None
-            carry0 = (s6, jnp.zeros((), jnp.float32))
-        else:
-            def body(c, _):
-                fields, mx = c
-                fields, tmax = self.step6(*fields)
-                return (fields, jnp.maximum(mx, jnp.max(tmax))), None
-            carry0 = (tuple(s6), jnp.zeros((), jnp.float32))
+        def body(c, _):
+            fields, mx = c
+            fields, smax = self.step6(*fields)
+            return (fields, jnp.maximum(mx, smax)), None
 
-        (s6, mx), _ = jax.lax.scan(body, carry0, None,
-                                   length=n_steps // spc)
+        (s6, mx), _ = jax.lax.scan(
+            body, (tuple(s6), jnp.zeros((), jnp.float32)), None,
+            length=n_steps // spc)
         ok = mx < swk.SSH_ERR_BOUND        # NaN compares False
         return s6, ok
 
 
-def fused_available(grid: Grid, cfg: ModelConfig, sharded: bool = False,
-                    px: int = 1, py: int = 1, tx: int = 64) -> bool:
-    """Whether the fused fast path supports this configuration.
-    x-varying (bipolar) metrics are handled by the 2D-metrics kernel
-    variant on both the single-device and sharded drivers. Periodic
-    boundaries are supported on the sharded driver (the margin exchange
-    adds the wrap pair) when the periodic axis is exactly mesh-divisible;
-    the single-device layout has static land margins, so periodic runs
-    route through FusedSharded2DModel (a 1x1 'mesh' wraps locally) or
-    fall back to the jnp path."""
+def fused_available(grid: Grid, sharded: bool = False,
+                    px: int = 1, py: int = 1) -> bool:
+    """Whether the fused step supports this grid. x-varying (bipolar)
+    metrics are handled by the 2D-metrics mode on both the single-device
+    and sharded drivers. Periodic boundaries are supported on the sharded
+    driver (the margin exchange adds the wrap pair) when the periodic
+    axis is exactly mesh-divisible; the single-device layout has static
+    land margins, so periodic runs route through FusedSharded2DModel (a
+    1x1 'mesh' wraps locally)."""
     if not sharded:
         return not (grid.periodic_x or grid.periodic_y)
-    xl = -(-grid.nx // (px * tx)) * tx
-    yl = -(-grid.ny // py)
-    if grid.periodic_x and xl * px != grid.nx:
+    if grid.periodic_x and grid.nx % px:
         return False
-    if grid.periodic_y and yl * py != grid.ny:
+    if grid.periodic_y and grid.ny % py:
         return False
     return True

@@ -1,17 +1,11 @@
-"""Fused Pallas step composed with SPMD sharding — the multi-chip fast
-path.
+"""Fused step composed with SPMD sharding along x over a 1D device mesh
+(model/fused_sharded2d.py generalizes it to 2D meshes).
 
-The domain is sharded along x over a 1D device mesh (the natural layout
-for TPU chip chains; 2D fused sharding can build on the same pattern).
-Each step: the 6 prognostic shards exchange their 8-row margins with
-mesh neighbours via two ppermutes (the only inter-chip traffic — the
+Each step: the 6 prognostic shards exchange their M-row margins with
+mesh neighbours via two ppermutes (the only inter-device traffic — the
 reference exchanges 14 fields per step, sync.f90; here depth/mask/RHS
-fields never leave the chip because the fused kernel recomputes them),
-then every shard runs the whole-step kernel on its margined block.
-
-ICI cost per step: 6 fields x 2 directions x (8 rows * Ys * 4 B) — a few
-hundred KB — fully overlappable by XLA with the kernel of the previous
-scan iteration.
+fields never leave the device because the fused step recomputes them),
+then every shard runs the whole-step update on its margined block.
 """
 
 from __future__ import annotations
@@ -27,17 +21,16 @@ from ..config import ModelConfig
 from ..core.grid import Grid
 from ..core.state import SWState
 from ..ops import sw_kernels as swk
-from ..ops.pallas import fused_step as fsk
+from ..ops import fused_step as fsk
 
-M = fsk.MARGIN
+M = fsk.margin_for(1)
 
 
 class FusedShardedSWModel:
     """x-sharded fused model over a 1D mesh of n devices."""
 
     def __init__(self, grid: Grid, cfg: ModelConfig, tau: float,
-                 n_devices: int, tx: int = 64, devices=None,
-                 interpret: bool = False):
+                 n_devices: int, devices=None):
         if grid.periodic_x or grid.periodic_y:
             raise ValueError("fused sharded path: periodic unsupported")
         self.grid = grid
@@ -47,15 +40,13 @@ class FusedShardedSWModel:
             devices = jax.devices()[:n_devices]
         self.mesh = Mesh(np.array(devices), ("x",))
 
-        # per-shard local extent: multiple of tile, covers nx
-        xl = -(-grid.nx // (n_devices * tx)) * tx
+        # per-shard local extent covering nx
+        xl = -(-grid.nx // n_devices)
         self.xl = xl
         self.Xg = xl * n_devices                 # global domain rows
-        # lane extent 128-aligned like make_layout (misaligned lane
-        # rolls cost ~2.6x; the pad lanes are dead land)
         self.lay = fsk.FusedLayout(
             nx=grid.nx, ny=grid.ny, X=xl, Xs=xl + 2 * M,
-            Ys=-(-(grid.ny + 2 * fsk.YPAD) // 128) * 128, tx=tx)
+            Ys=grid.ny + 2 * fsk.YPAD, margin=M)
 
         met = fsk.metrics_profile_from_grid(grid, self.lay)
         self.met = jnp.asarray(met)
@@ -76,7 +67,7 @@ class FusedShardedSWModel:
         self.step_raw = fsk.build_fused_sw_step(
             self.lay, None, None, None, float(tau), cfg.sw.time_smooth,
             cfg.sw.full_free_surface, cfg.sw.trans_terms, cfg.sw.ksw_lat,
-            mu_const=0.0, n_tracers=self.n_tracers, interpret=interpret)
+            mu_const=0.0, n_tracers=self.n_tracers)
 
     # ------------------------------------------------------------------
     def pack(self, state: SWState):
@@ -119,15 +110,15 @@ class FusedShardedSWModel:
             def one(c, _):
                 fields, mx = c
                 margined = tuple(exchange(f) for f in fields)
-                outs, tmax = self.step_raw(lu_l, hr_l, self.met,
+                outs, smax = self.step_raw(lu_l, hr_l, self.met,
                                            *margined)
                 return (tuple(o[M:-M] for o in outs),
-                        jnp.maximum(mx, jnp.max(tmax))), None
+                        jnp.maximum(mx, smax)), None
 
             (s6, mx), _ = lax.scan(
                 one, (tuple(s6), jnp.zeros((), jnp.float32)), None,
                 length=n_inner)
-            # per-step in-kernel |ssh| max (check_ssh_err cadence);
+            # per-step |ssh| max (check_ssh_err cadence);
             # NaN compares False
             okl = mx < swk.SSH_ERR_BOUND
             ok = lax.psum(okl.astype(jnp.int32), "x") == n

@@ -1,18 +1,17 @@
-"""Fused Pallas step over a full 2D device mesh.
+"""Fused step over a full 2D device mesh.
 
 Generalizes model/fused_sharded.py (x-only) to P("x", "y") sharding: each
-exchange the prognostic shards swap M-row x-margins and M-lane y-margins
-with their mesh neighbours in two ppermute passes (the y-pass runs on the
-x-margined array, so corner margins arrive from the diagonal neighbour —
-the same composition as parallel/halo.py), then every shard runs the
-whole-step kernel on its (xl+2M, yl+2M) margined block.
+exchange the prognostic shards swap M-row x-margins and M-column
+y-margins with their mesh neighbours in two ppermute passes (the y-pass
+runs on the x-margined array, so corner margins arrive from the diagonal
+neighbour — the same composition as parallel/halo.py), then every shard
+runs the whole-step update on its (xl+2M, yl+2M) margined block.
 
-Margin-width safety: the kernel's y-shifts are lane rolls; wrap-around
-garbage creeps inward by the cumulative stencil reach (<= 4 cells) per
-step, so M = 4*steps_per_call-cell margins cover all chained model steps
-per exchange (the kernel's output-halo chaining) — dividing the per-step
-collective count by steps_per_call. The same argument sizes the x
-Element-window margin.
+Margin-width safety: the step's shifts read zeros past the block edge;
+that edge error creeps inward by the cumulative stencil reach (<= 4
+cells) per step, so M = 4*steps_per_call-cell margins cover all chained
+model steps per exchange — dividing the per-step collective count by
+steps_per_call.
 
 Full config envelope (matching the reference's GPU layer covering every
 configuration, gpu/interface/sw_interface_gpu.f90):
@@ -34,10 +33,8 @@ weighted_y_edges) instead of an even split — the applied form of the
 reference's 2D weighted block assignment (core/decomposition.f90:532-669,
 which balances a bnx x bny block grid). Shards get unequal valid extents
 (padded to common local extents); the margin exchange slices each shard's
-edge strips at its own dynamic offsets, and the kernel's per-tile wet
-guard skips pad AND all-land tiles entirely (the shard-level analog of
-the reference's weight-0 block drop, decomposition.f90:578) — so
-equal-wet cuts translate into equal per-shard WORK, not just equal area.
+edge strips at its own dynamic offsets. Every shard computes its whole
+padded block, land included, so the cuts balance wet points, not work.
 """
 
 from __future__ import annotations
@@ -53,7 +50,7 @@ from ..config import ModelConfig
 from ..core.grid import Grid
 from ..core.state import SWState
 from ..ops import sw_kernels as swk
-from ..ops.pallas import fused_step as fsk
+from ..ops import fused_step as fsk
 from ..parallel.decomposition import weighted_x_edges, weighted_y_edges
 
 
@@ -61,20 +58,13 @@ class FusedSharded2DModel:
     """Fused model sharded over a px * py mesh."""
 
     def __init__(self, grid: Grid, cfg: ModelConfig, tau: float,
-                 px: int, py: int, tx: int = 64, devices=None,
-                 interpret: bool = False, mu_const: float = 0.0,
+                 px: int, py: int, devices=None, mu_const: float = 0.0,
                  static_rslu: bool = True, steps_per_call: int = 1,
-                 weighted: bool = False, tile_guard: bool = True,
-                 compute_powers_x=None, compute_powers_y=None,
-                 x_edges=None, y_edges=None,
+                 weighted: bool = False, x_edges=None, y_edges=None,
                  elide_sel: bool | None = None, q4: bool | None = None,
                  share_prev: bool | None = None,
                  fast2d: bool | None = None):
-        """``compute_powers_x``: per-x-band relative throughput targets
-        for the weighted cuts (the DLB loop's measured compute_power,
-        control/preprocess.f90:71-72) — band k receives a wet share
-        proportional to powers[k] instead of 1/px.
-
+        """``weighted``: equal-wet cut lines (mod_decomposition=1).
         ``x_edges``/``y_edges``: explicit cut lines (len px+1 / py+1,
         spanning [0, nx] / [0, ny]) — parallel.par mod_decomposition=2,
         cuts read back from a decomposition.txt file
@@ -89,8 +79,8 @@ class FusedSharded2DModel:
         self.periodic_x = bool(grid.periodic_x)
         self.periodic_y = bool(grid.periodic_y)
         # margin width in both axes: 4 cells of stencil reach per
-        # chained step (8-aligned), so deeper chaining widens the
-        # exchanged strips instead of adding exchanges
+        # chained step, so deeper chaining widens the exchanged strips
+        # instead of adding exchanges
         M = self.M = fsk.margin_for(steps_per_call)
         int_mask = (np.asarray(grid.lu) < 0.5).astype(np.int32)
         # ---- x cut lines ------------------------------------------------
@@ -103,14 +93,13 @@ class FusedSharded2DModel:
         elif weighted and px > 1:
             # equal-wet x cut lines; local pad (not global) absorbs the
             # unequal band widths
-            edges = weighted_x_edges(int_mask, px, min_width=M,
-                                     compute_powers=compute_powers_x)
+            edges = weighted_x_edges(int_mask, px, min_width=M)
         else:
-            xl = -(-grid.nx // (px * tx)) * tx
+            xl = -(-grid.nx // px)
             edges = np.arange(px + 1, dtype=np.int64) * xl
         self.x_edges = edges
         lx = np.diff(edges).astype(np.int64)          # valid rows/shard
-        Xpad = int(-(-lx.max() // tx) * tx)           # common local extent
+        Xpad = int(lx.max())                          # common local extent
         # ---- y cut lines ------------------------------------------------
         if y_edges is not None:
             y_edges = np.asarray(y_edges, np.int64)
@@ -119,13 +108,12 @@ class FusedSharded2DModel:
                     f"y_edges has {len(y_edges)} entries for a py={py} "
                     "mesh (need py+1)")
         elif weighted and py > 1:
-            y_edges = weighted_y_edges(int_mask, py, min_width=M,
-                                       compute_powers=compute_powers_y)
+            y_edges = weighted_y_edges(int_mask, py, min_width=M)
         else:
             yl_u = -(-grid.ny // py)
             y_edges = np.arange(py + 1, dtype=np.int64) * yl_u
         self.y_edges = y_edges
-        ly = np.diff(y_edges).astype(np.int64)        # valid lanes/shard
+        ly = np.diff(y_edges).astype(np.int64)        # valid cols/shard
         Ymax = int(ly.max())                          # common local extent
         # shards need dynamic-offset margin handling whenever any valid
         # extent differs from the padded one (weighted or file cuts)
@@ -137,8 +125,8 @@ class FusedSharded2DModel:
                 f"exchange (got {lx.min()}x{ly.min()}); use a smaller mesh")
         if self.periodic_x and int(edges[-1]) != grid.nx:
             raise ValueError(
-                f"periodic x needs nx divisible by px*tx "
-                f"(nx={grid.nx}, px={px}, tx={tx})")
+                f"periodic x needs nx divisible by px "
+                f"(nx={grid.nx}, px={px})")
         if self.periodic_y and int(y_edges[-1]) != grid.ny:
             raise ValueError(
                 f"periodic y needs ny divisible by py "
@@ -149,21 +137,16 @@ class FusedSharded2DModel:
         self.Yg = int(y_edges[-1])   # global y extent spanned by the cuts
         # static arrays must cover every shard's FULL padded window with
         # land-consistent values: zero-filled pads would read as "wet" in
-        # the kernel's encoded mask compares (0 < threshold) and breed
+        # the step's encoded mask compares (0 < threshold) and breed
         # 0-division garbage next to weighted-cut margins
         self.Exg = max(self.Eg, int(max(edges[i] + Xpad
                                         for i in range(px))))
         self.Eyg = max(self.Yg, int(max(y_edges[j] + Ymax
                                         for j in range(py))))
-        # lane extent rounded up to a multiple of 128: misaligned lane
-        # rolls cost ~2.6x (see fused_step.make_layout); the dead lanes
-        # beyond the y-margin are zero-filled land
-        Ysp = -(-(Ymax + 2 * M) // 128) * 128
+        Ysp = Ymax + 2 * M
         self.Ysp = Ysp
         self.lay = fsk.FusedLayout(nx=grid.nx, ny=grid.ny, X=Xpad,
-                                   Xs=Xpad + 2 * M, Ys=Ysp, tx=tx,
-                                   margin=M)
-        n_tiles = Xpad // tx
+                                   Xs=Xpad + 2 * M, Ys=Ysp, margin=M)
 
         # ---- global -> per-shard margined statics -----------------------
         if (self.periodic_x and self.Exg != grid.nx) or \
@@ -182,14 +165,13 @@ class FusedSharded2DModel:
         def shard4(gp, lead=0, box=False):
             """Margined global (..., Exg+2M, Eyg+2M) -> per-shard
             blocks (px, py, ..., Xpad+2M, Ysp): every shard slices its
-            FULL window (valid + margins + pad, land-consistent), plus
-            land zeros in the lane-alignment pad beyond Ymax+2M.
+            FULL window (valid + margins + pad, land-consistent).
 
             ``box=True`` (mask-like fields): force LAND beyond each
             shard's (valid + 2M-margin) box. The persistent margined
             carry (make_runner) refreshes only 2M strips per exchange;
             cells beyond the box then carry stale values — land-boxed
-            masks make the kernel's output selects copy those cells
+            masks make the step's output selects copy those cells
             through unchanged (exact zeros from pack time), so they can
             never evolve, blow up, or reach the stability guard."""
             out = np.zeros((px, py) + gp.shape[:lead]
@@ -217,24 +199,9 @@ class FusedSharded2DModel:
         self.lu_shards = jnp.asarray(lu_sh)
         self.hr_shards = jnp.asarray(hr_sh)
 
-        # per-shard valid extents + per-tile wet flags (the tile guard
-        # skips pad and all-land tiles; see module docstring)
+        # per-shard valid extents
         self.lx_arr = jnp.asarray(lx.astype(np.int32))
         self.ly_arr = jnp.asarray(ly.astype(np.int32))
-        self.tile_guard = bool(tile_guard)
-        wet = np.asarray(grid.lu) > 0.5
-        tw = np.zeros((px, py, n_tiles), np.int32)
-        for i in range(px):
-            for j in range(py):
-                for t in range(n_tiles):
-                    r0 = int(edges[i]) + t * tx
-                    r1 = min(int(edges[i]) + (t + 1) * tx,
-                             int(edges[i + 1]), grid.nx)
-                    c0 = int(y_edges[j])
-                    c1 = min(int(y_edges[j + 1]), grid.ny)
-                    if r0 < r1 and c0 < c1:
-                        tw[i, j, t] = int(wet[r0:r1, c0:c1].any())
-        self.tile_wet = jnp.asarray(tw)
 
         # ---- metrics: y-profiles (x-uniform) or full 2D planes ----------
         try:
@@ -252,7 +219,7 @@ class FusedSharded2DModel:
         if self.metrics_2d:
             met_g = self._global_planes(grid, derived=self.fast2d)
             if self.fast2d:
-                # stream only the consumed metric rows (fast2d_met_rows)
+                # keep only the consumed metric rows (fast2d_met_rows)
                 visc2 = bool(cfg.sw.ksw_lat and mu_const)
                 n_tr = (cfg.sw.tracer_num if cfg.sw.use_tracers > 0
                         else 0)
@@ -293,8 +260,8 @@ class FusedSharded2DModel:
         hr_np = np.asarray(grid.hhq_rest, np.float32)
         self.hr_const = (float(hr_np.flat[0])
                          if np.ptp(hr_np) == 0.0 else None)
-        # round-5 fast-mode reductions (see model/fused.py), default
-        # ON whenever the fast kernel runs (elide_sel/q4 exact in real
+        # fast-mode reductions (see model/fused.py), default
+        # ON whenever the fast mode runs (elide_sel/q4 exact in real
         # arithmetic; share_prev regroups at f32 round-off); safe
         # across shard margins — within each shard's valid+margin box the masks are
         # the true global masks (the elided filter then reproduces the
@@ -318,12 +285,12 @@ class FusedSharded2DModel:
             # planes are built PER SHARD from the land-boxed lu/hr
             # slices (see shard4): beyond each shard's valid+margin box
             # the rslu/ludxdy planes then take their LAND values, so the
-            # kernel's encoded-mask compares read land there and the
+            # step's encoded-mask compares read land there and the
             # persistent carry's stale cells are copy-through no-ops
             planes = np.zeros((px, py, len(names), Xpad + 2 * M, Ysp),
                               np.float32)
             # q4 folds the advection 1/4 into the u/v interp recips
-            # (exact power-of-two scale, compensated in-kernel)
+            # (exact power-of-two scale, compensated in the step)
             qs = np.float32(0.25 if self.q4 else 1.0)
             if self.fast2d:
                 # per-shard pointwise recips for the rslu/metric folds
@@ -360,23 +327,18 @@ class FusedSharded2DModel:
             self.lay, None, None, None, float(tau), cfg.sw.time_smooth,
             cfg.sw.full_free_surface, cfg.sw.trans_terms, cfg.sw.ksw_lat,
             mu_const=self.mu_const, n_tracers=self.n_tracers,
-            interpret=interpret, metrics_2d=self.metrics_2d,
+            metrics_2d=self.metrics_2d,
             rslu_planes=(True if self.static_rslu else None),
-            steps_per_call=self.steps_per_call,
-            tile_guard=self.tile_guard, guard_y_margin=True,
-            hr_const=self.hr_const, alias_io=True,
-            elide_sel=self.elide_sel, q4=self.q4,
+            steps_per_call=self.steps_per_call, guard_y_margin=True,
+            hr_const=self.hr_const, elide_sel=self.elide_sel, q4=self.q4,
             share_prev=self.share_prev, fast2d=self.fast2d,
-            met_map=self._met_map,
-            n_met=(len(self._met_map) if self.fast2d else 16),
-            vmem_limit_bytes=(fsk.FAST_VMEM_CAP if fast and not interpret
-                              else None))
+            met_map=self._met_map)
 
     @staticmethod
     def _global_profiles(grid: Grid) -> np.ndarray:
         """(N_PROF, ny) metric + reciprocal latitude profiles (the
         unsharded builder's layout, without the YPAD embedding)."""
-        lay0 = fsk.FusedLayout(grid.nx, grid.ny, 0, 0,
+        lay0 = fsk.FusedLayout(grid.nx, grid.ny, grid.nx, grid.nx,
                                grid.ny + 2 * fsk.YPAD, 0)
         rows = fsk.metrics_profile_from_grid(grid, lay0)
         return rows[:, fsk.YPAD:fsk.YPAD + grid.ny]
@@ -470,7 +432,7 @@ class FusedSharded2DModel:
     def pack(self, state: SWState):
         """State fields -> margined band-major arrays (px*Xs, py*Ysp),
         sharded P("x","y"): shard (i,j) holds band rows
-        [x_edges[i], x_edges[i+1]) x lanes [y_edges[j], y_edges[j+1])
+        [x_edges[i], x_edges[i+1]) x columns [y_edges[j], y_edges[j+1])
         at local offset (M, M); margins/pads start as exact zeros (the
         first exchange fills the margins)."""
         src_r, src_c, valid, _, _ = self._pack_maps()
@@ -526,30 +488,27 @@ class FusedSharded2DModel:
         dsl = lax.dynamic_slice_in_dim
 
         # Single-shard non-periodic axes need NO margin work at all:
-        # the kernel's outputs are ALIASED onto its inputs (alias_io),
-        # so the never-written x-margin rows keep their pack-time zeros,
-        # and the written y-margin lanes are copy-through no-ops on the
-        # land-boxed planes — zeros persist for the whole scan.
+        # their margins are land, where the step's output selects copy
+        # the pack-time zeros through — zeros persist for the whole scan.
         need_x = px > 1 or self.periodic_x
         need_y = py > 1 or self.periodic_y
 
         def exchange(f, lxl, lyl):
             """Strip-wise margin refresh of a persistent margined
-            (Xs, Ys) carry: the kernel's out windows write only the
-            interior rows [M, M+Xpad), so each exchange ppermutes the
-            four 2M-wide edge strips and dynamic-update-slices them in
-            place — never a full pad/concat rebuild (VERDICT r4 item 2;
-            the reference likewise packs/unpacks only strips,
+            (Xs, Ys) carry: each exchange ppermutes the M-wide edge
+            strips and dynamic-update-slices them over the margins in
+            place — never a full pad/concat rebuild (the reference
+            likewise packs/unpacks only strips,
             syncborder_block2D_gen_all.fi:41-82). Valid rows are
             [M, M+lxl); the y-pass slices AFTER the x strips landed, so
             corner cells ride through the orthogonal neighbour exactly
             as in parallel/halo.py. ``lxl``/``lyl``: this shard's valid
             extents (weighted/file cuts make them dynamic)."""
             if weighted_x:
-                # rows beyond the received strip up to Xs are neither
-                # kernel-written nor exchanged when lxl < Xpad — ground
-                # them BEFORE the strip writes (the update-slice clamp
-                # makes the strips rewrite any overlap)
+                # rows beyond the received strip up to Xs are not
+                # exchanged when lxl < Xpad — ground them BEFORE the
+                # strip writes (the update-slice clamp makes the strips
+                # rewrite any overlap)
                 f = dus(f, jnp.zeros((M, f.shape[1]), f.dtype),
                         M + lxl + M, 0)
             if need_x:
@@ -578,8 +537,7 @@ class FusedSharded2DModel:
                     else dus(f, hi, M + self.Ymax, 1)
             return f
 
-        def local_fn(lu_b, hr_b, met_b, plane_b, lx_b, ly_b, tw_b,
-                     carry):
+        def local_fn(lu_b, hr_b, met_b, plane_b, lx_b, ly_b, carry):
             lu_l = lu_b[0, 0]
             hr_l = hr_b[0, 0]
             met_l = met_b[0, 0] if self.metrics_2d else met_b[0]
@@ -588,9 +546,6 @@ class FusedSharded2DModel:
             extra = ()
             if self.static_rslu:
                 extra = (plane_b[0, 0],)
-            kw = {}
-            if self.tile_guard:
-                kw["tile_wet"] = tw_b[0, 0]
 
             # No per-step pad re-grounding: the land-boxed static
             # planes (shard4 box=True) make every cell beyond the
@@ -600,15 +555,14 @@ class FusedSharded2DModel:
             def one(c, _):
                 fields, mx = c
                 fields = tuple(exchange(f, lxl, lyl) for f in fields)
-                outs, tmax = self.step_raw(lu_l, hr_l, met_l, *extra,
-                                           *fields, **kw)
-                return (tuple(outs),
-                        jnp.maximum(mx, jnp.max(tmax))), None
+                outs, smax = self.step_raw(lu_l, hr_l, met_l, *extra,
+                                           *fields)
+                return (tuple(outs), jnp.maximum(mx, smax)), None
 
             (carry, mx), _ = lax.scan(
                 one, (tuple(carry), jnp.zeros((), jnp.float32)), None,
                 length=n_inner // spc)
-            # per-step in-kernel |ssh| max (check_ssh_err cadence);
+            # per-step |ssh| max (check_ssh_err cadence);
             # NaN compares False
             okl = mx < swk.SSH_ERR_BOUND
             ok = lax.psum(okl.astype(jnp.int32), ("x", "y")) == px * py
@@ -623,7 +577,6 @@ class FusedSharded2DModel:
             local_fn, mesh=self.mesh,
             in_specs=(P("x", "y", None, None), P("x", "y", None, None),
                       self._met_spec, plane_spec, P("x"), P("y"),
-                      P("x", "y", None),
                       tuple(P("x", "y") for _ in range(nf))),
             out_specs=(tuple(P("x", "y") for _ in range(nf)), P()),
             check_vma=False,
@@ -633,6 +586,6 @@ class FusedSharded2DModel:
         def runner(carry):
             return sharded(self.lu_shards, self.hr_shards,
                            self.met_shards, planes, self.lx_arr,
-                           self.ly_arr, self.tile_wet, tuple(carry))
+                           self.ly_arr, tuple(carry))
 
         return runner

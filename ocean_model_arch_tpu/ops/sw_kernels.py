@@ -13,8 +13,8 @@ exactly as Fortran's implicit promotion does. Division order inside
 formulas is kept to preserve bitwise behaviour where practical.
 
 Reference citations are per function. None of this code is a translation of
-the CUDA Fortran mirror (gpu/*); the TPU analog of that layer lives in
-ops/pallas/.
+the CUDA Fortran mirror (gpu/*); the analog of that layer is
+ops/fused_step.py.
 """
 
 from __future__ import annotations

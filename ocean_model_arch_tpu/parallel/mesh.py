@@ -1,10 +1,10 @@
 """Device mesh construction.
 
-The TPU-native replacement for the reference's 2D MPI Cartesian
-communicator (shared/mpp/mpp.f90:83-93, mpi_dims_create + mpi_cart_create):
-a 2D jax device mesh with axes ("x", "y") over which every 2D field is
-sharded P("x", "y"). Halo traffic rides the ICI via ppermute
-(parallel/halo.py).
+The replacement for the reference's 2D MPI Cartesian communicator
+(shared/mpp/mpp.f90:83-93, mpi_dims_create + mpi_cart_create): a 2D jax
+device mesh with axes ("x", "y") over which every 2D field is sharded
+P("x", "y"). Halo traffic is ppermute collectives between neighbouring
+devices (parallel/halo.py).
 """
 
 from __future__ import annotations

@@ -1,15 +1,15 @@
-"""Multi-host (pod-slice) setup.
+"""Multi-host setup.
 
 Single-host meshes come from parallel/mesh.py. Across hosts,
 jax.distributed wires the processes together and the same
-Mesh/shard_map/ppermute code spans the slice: halo traffic between shards
-on the same slice rides the ICI; slice-boundary edges cross the DCN —
-mirroring the reference's intra-node direct copies vs inter-node MPI
-(syncborder_block2D_gen_all.fi:218-231 vs :100-129).
+Mesh/shard_map/ppermute code spans them: halo traffic between devices of
+one host stays on the host's device links; host-boundary edges cross the
+network — mirroring the reference's intra-node direct copies vs
+inter-node MPI (syncborder_block2D_gen_all.fi:218-231 vs :100-129).
 
-This module cannot be exercised in a 1-chip environment; the sharding
-logic it feeds is validated on virtual device meshes
-(tests/test_parallel.py, tests/test_fused_sharded.py) and via
+The sharding logic it feeds is validated on virtual device meshes
+(tests/test_parallel.py, tests/test_fused_sharded.py), across CPU
+processes (tests/test_multiprocess.py) and via
 __graft_entry__.dryrun_multichip.
 """
 
@@ -24,8 +24,10 @@ from jax.sharding import Mesh
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """jax.distributed.initialize with TPU auto-detection (on Cloud TPU
-    all arguments are discovered from the metadata server)."""
+    """jax.distributed.initialize. Pass all three arguments unless the
+    cluster environment supplies them (a plain GPU host does not: give
+    ``coordinator_address="localhost:<port>"``, the process count and
+    this process's index)."""
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
                                process_id=process_id)
@@ -35,7 +37,7 @@ def pod_mesh(px: int, py: int) -> Mesh:
     """A px*py mesh over ALL devices of the slice (global across hosts).
 
     Lay the x axis along the major device order so that x-neighbour halo
-    exchanges stay intra-host/ICI wherever possible and only the px-1
+    exchanges stay intra-host wherever possible and only the px-1
     shard seams that fall on host boundaries touch DCN."""
     devices = jax.devices()
     if len(devices) != px * py:

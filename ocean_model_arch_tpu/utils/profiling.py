@@ -1,9 +1,9 @@
-"""Profiling harness — the reference's timer taxonomy on TPU.
+"""Profiling harness — the reference's timer taxonomy on the accelerator.
 
 The reference instruments phases (model_step/sw/tracers/sync pack/mpi/
 unpack/wait, mpp.f90:37-52) and per-kernel times, printed at finalize.
-On TPU the in-step phases live inside one XLA program, so the equivalents
-are:
+On the accelerator the in-step phases live inside one XLA program, so the
+equivalents are:
 
 - :func:`trace`: wrap any region in a jax.profiler trace (XProf dump) —
   open with xprof/tensorboard to see per-fusion and per-collective times,

@@ -1,5 +1,5 @@
 """Quantify the load-balance gap: rectangular weighted shard cuts (what
-TPU SPMD realizes) vs the reference's Hilbert-packed arbitrary
+the SPMD mesh realizes) vs the reference's Hilbert-packed arbitrary
 block->rank maps (core/decomposition.f90:532-612) on the real BS / AS
 coastline masks.
 

@@ -1,26 +1,27 @@
-"""Per-config chip benchmarks for the five BASELINE.json workloads
-(examples 01-05: flat-basin gravity wave, rotating basin, tracer-coupled,
-Black Sea mask, Azov hires; reference workload definitions
-/root/reference/configs/basinpar.f90:96-166).
+"""Per-config benchmarks for the five example workloads (examples 01-05:
+flat-basin gravity wave, rotating basin, tracer-coupled, Black Sea mask,
+Azov hires; reference workload definitions basinpar.f90:96-166).
 
-Prints ONE JSON line per config (same schema family as bench.py):
-Gpts/s dense, wet-points/s on masked configs, ms/step, vs the 1.31e9
-jnp-composition baseline. All numbers come from one session so they are
-mutually comparable (chip drift is ~2x between sessions — BASELINE.md).
+Each config runs in f32 on the compute path the path rule
+(model.select_path) picks, through OceanModel.make_runner. Prints ONE
+JSON line per config: points/s, wet points/s, ms/step, the path and the
+device. Compare numbers only within one run on one device.
 
 Run: python scripts/bench_configs.py [config ...]   (defaults: all five)
 """
 
 import dataclasses
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, ".")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
-from ocean_model_arch_tpu.utils.cache import enable_compilation_cache
+from ocean_model_arch_tpu.utils.cache import enable_compilation_cache  # noqa
 
 CONFIGS = ["01_flat_basin", "02_rotating_basin", "03_tracer",
            "04_black_sea", "05_azov_hires"]
@@ -30,24 +31,16 @@ def bench_one(name: str, n_inner: int = 2000, windows: int = 3):
     import jax
 
     from ocean_model_arch_tpu.config import Precision
-    from ocean_model_arch_tpu.model.fused import FusedSWModel
     from ocean_model_arch_tpu.model.model import (OceanModel,
                                                   load_config_dir)
 
-    d = f"examples/{name}"
+    d = os.path.join(REPO, "examples", name)
     cfg = load_config_dir(d)
     cfg = dataclasses.replace(cfg, precision=Precision.f32())
     om = OceanModel(cfg, base_dir=d)
-    grid, state = om.grid, om.state
-    tau = float(cfg.run.tau)
-    fm = FusedSWModel(grid, cfg, tau, static_rslu=True,
-                      steps_per_call=2,          # tx auto
-                      mu_const=om.state_mu_const() or 0.0)
-    carry = fm.pack(state)
-
-    @jax.jit
-    def run(c):
-        return fm.run_steps(c, n_inner)
+    grid = om.grid
+    run = om.make_runner(n_inner)
+    carry = om._state_s if om.mesh is not None else om.state
 
     carry, ok = run(carry)
     if not bool(ok):
@@ -56,7 +49,7 @@ def bench_one(name: str, n_inner: int = 2000, windows: int = 3):
     for _ in range(windows):
         t0 = time.perf_counter()
         carry, ok = run(carry)
-        good = bool(ok)          # value transfer = true barrier
+        good = bool(ok)          # reading the flag waits for the device
         best = min(best, time.perf_counter() - t0)
         if not good:
             raise RuntimeError(f"{name}: stability guard tripped")
@@ -64,16 +57,16 @@ def bench_one(name: str, n_inner: int = 2000, windows: int = 3):
     wet = float((np.asarray(grid.lu) > 0.5).mean())
     pps = pts * n_inner / best
     print(json.dumps({
-        "metric": f"sw_step_points_per_sec_per_chip[{name}]",
-        "value": round(pps, 1),
+        "metric": f"sw_step_points_per_sec[{name}]",
+        "value": pps,
         "unit": "points/s",
-        "vs_baseline": round(pps / 1.31e9, 4),
-        "ms_per_step": round(best / n_inner * 1e3, 4),
+        "ms_per_step": best / n_inner * 1e3,
         "grid": f"{grid.nx}x{grid.ny}",
-        "wet_fraction": round(wet, 4),
-        "wet_points_per_sec": round(pps * wet, 1),
-        "tracers": fm.n_tracers,
-        "mu_const": fm.mu_const,
+        "wet_fraction": wet,
+        "wet_points_per_sec": pps * wet,
+        "tracers": cfg.sw.tracer_num if cfg.sw.use_tracers else 0,
+        "path": om.path,
+        "device_kind": jax.devices()[0].device_kind,
     }), flush=True)
 
 

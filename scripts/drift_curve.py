@@ -1,11 +1,11 @@
-"""Long-horizon drift of the PRODUCTION fused f32 kernel vs the f64 jnp
-golden (VERDICT r4 #8): Black Sea 4 km workload (the golden_bs100
+"""Long-horizon drift of the PRODUCTION fused f32 step vs the f64 jnp
+golden: Black Sea 4 km workload (the golden_bs100
 config: real coastline, flat 100 m, one tracer, tau=1), compared at
 checkpoints out to 2000 steps.
 
 The f64 golden runs in a CPU subprocess (x64 mode, the general jnp
-path); the fused kernel runs compiled on the chip in production f32 with
-all round-5 reductions at their defaults (steps_per_call=2,
+path); the fused step runs compiled on the device in production f32
+with all reductions at their defaults (steps_per_call=2,
 elide_sel/q4/share_prev). Reported: relative L2 and Linf error of ssh
 (wet cells) and tracer at each checkpoint — the committed error-growth
 curve for VALIDATION.md section 4.
@@ -91,7 +91,7 @@ def main():
     grid = build_grid(basin, mask, precision=cfg.precision)
     state = init_ocean_state(grid, cfg)
     wet = np.asarray(grid.lu) > 0.5
-    fm = FusedSWModel(grid, cfg, 1.0, tx=64, static_rslu=True,
+    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True,
                       steps_per_call=2)
     carry = fm.pack(state)
 
@@ -123,6 +123,7 @@ def main():
                      "wall_s": round(time.perf_counter() - t0, 2)})
         print(json.dumps(rows[-1]), flush=True)
     print(json.dumps({"metric": "fused_f32_drift_vs_f64_golden",
+                      "device_kind": jax.devices()[0].device_kind,
                       "rows": rows}))
 
 

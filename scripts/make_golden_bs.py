@@ -3,7 +3,7 @@
 100-step f64 run of the Black Sea 4 km workload (basinpar.f90:96-130,
 real coastline mask, flat 100 m bathymetry, gaussian-bump SSH, one
 tracer) on the general jnp path, CPU. The digests anchor the physics:
-Mosaic/XLA-level optimization rounds and jax upgrades are asserted
+optimization rounds and jax/XLA upgrades are asserted
 against them by tests/test_golden.py, the regression analog of the
 reference's sync_test discipline (syncborder_block2D_gen_test.fi).
 

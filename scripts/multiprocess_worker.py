@@ -1,7 +1,7 @@
 """Worker for the multi-process CPU execution test (one OS process = one
 'host' with one CPU device, wired by jax.distributed + Gloo collectives).
 
-The TPU-native analog of the reference's multi-rank MPI execution
+The analog of the reference's multi-rank MPI execution
 (shared/mpp/mpp.f90:64-93 mpi_init + cart comm;
 syncborder_block2D_gen_all.fi:100-129 inter-rank sends): the SAME
 sharded-model code that runs on a single-process device mesh runs
@@ -19,7 +19,7 @@ shardings in place, runs M more steps, and writes the continued
 trajectory.
 
 fused2d mode (nproc=4): the PRODUCTION path — FusedSharded2DModel
-(interpret-mode Pallas) over a 2x2 mesh whose BOTH axes cross process
+over a 2x2 mesh whose BOTH axes cross process
 boundaries, so the margin-strip ppermutes (including the corner
 composition) ride Gloo inter-process transport — the analog of the
 reference's inter-rank sends incl. corner directions
@@ -57,7 +57,7 @@ def build_workload(nproc: int, curve_grid: int = 1):
 def main_fused2d(proc_id: int, nproc: int, port: int, outdir: str,
                  curve_grid: int = 1) -> None:
     """FusedSharded2DModel across 4 processes on a 2x2 mesh
-    (curve_grid=2: the fast2d bipolar kernel with its pruned metric
+    (curve_grid=2: the fast2d bipolar step with its pruned metric
     planes exchanges margins over Gloo)."""
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -76,7 +76,7 @@ def main_fused2d(proc_id: int, nproc: int, port: int, outdir: str,
     grid, cfg, state = build_workload(nproc, curve_grid)
     # steps_per_call=2 — the production driver's chained-exchange mode
     # (one margin exchange per TWO model steps crosses Gloo)
-    fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, tx=8, interpret=True,
+    fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2,
                              devices=jax.devices(), steps_per_call=2)
     c, ok = fm.make_runner(N1)(fm.pack(state))
     assert bool(ok), "stability guard tripped across processes (fused2d)"

@@ -9,7 +9,7 @@ whenever reference outputs are available:
    (`make gcc && mpirun -n N ./model`) with a chosen
    basin.par/sw.par/ocean_run.par; it writes RESULTS/ssh.dat (+ hhq.dat,
    ff1.dat) as real4 direct-access records of the (nx-4)x(ny-4) interior.
-2. Run this script with the same config directory; it runs the TPU
+2. Run this script with the same config directory; it runs this
    framework in f64 validation mode for the same number of steps and
    compares every output record (our reader ingests the reference's
    files byte-compatibly — io/grads.py).

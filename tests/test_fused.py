@@ -1,5 +1,6 @@
-"""Fused Pallas whole-step kernel vs the general jnp path (interpret mode
-on CPU; the same comparison runs compiled on real TPU in bench.py)."""
+"""The fused whole-step update (ops/fused_step.py) vs the general jnp
+composition; chip_smoke.py repeats the comparison on the GPU at the
+production extent."""
 
 import dataclasses
 
@@ -14,7 +15,7 @@ from ocean_model_arch_tpu.core.masks import frame_of_land_mask
 from ocean_model_arch_tpu.model.fused import FusedSWModel, fused_available
 from ocean_model_arch_tpu.model.init import init_ocean_state
 from ocean_model_arch_tpu.model.step import make_step, run_steps
-from ocean_model_arch_tpu.ops.pallas import fused_step as fsk
+from ocean_model_arch_tpu.ops import fused_step as fsk
 
 
 def _case(curve_grid, with_islands, nx=70, ny=52):
@@ -43,7 +44,7 @@ def test_fused_matches_jnp(curve_grid, with_islands):
     ref, ok = run_steps(step, state, np.float32(1.0), 30)
     assert bool(ok)
 
-    fm = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True)
+    fm = FusedSWModel(grid, cfg, 1.0)
     s6 = fm.pack(state)
     s6, ok2 = jax.jit(lambda s: fm.run_steps(s, 30))(s6)
     assert bool(ok2)
@@ -73,7 +74,7 @@ def test_fused_tracers_match_jnp(curve_grid, static_rslu):
     ref, ok = run_steps(jax.jit(make_step(grid, cfg)), state,
                         np.float32(1.0), 30)
     assert bool(ok)
-    fm = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
+    fm = FusedSWModel(grid, cfg, 1.0,
                       static_rslu=static_rslu)
     s = fm.pack(state)
     s, ok2 = jax.jit(lambda c: fm.run_steps(c, 30))(s)
@@ -103,7 +104,7 @@ def test_fused_viscosity_branch(curve_grid, static_rslu):
     ref, ok = run_steps(jax.jit(make_step(grid, cfg)), state,
                         np.float32(1.0), 30)
     assert bool(ok)
-    fm = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True, mu_const=MU,
+    fm = FusedSWModel(grid, cfg, 1.0, mu_const=MU,
                       static_rslu=static_rslu)
     s = fm.pack(state)
     s, ok2 = jax.jit(lambda c: fm.run_steps(c, 30))(s)
@@ -121,8 +122,8 @@ def test_fused_static_rslu_bitexact_2d():
     replace the interp reciprocal-count selects — results must be
     bit-identical to the in-kernel select chains."""
     grid, cfg, state = _case(2, True)
-    fm = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True)
-    fs = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
+    fm = FusedSWModel(grid, cfg, 1.0)
+    fs = FusedSWModel(grid, cfg, 1.0,
                       static_rslu=True, fast2d=False)
     a6, ok1 = jax.jit(lambda s: fm.run_steps(s, 20))(fm.pack(state))
     b6, ok2 = jax.jit(lambda s: fs.run_steps(s, 20))(fs.pack(state))
@@ -135,12 +136,12 @@ def test_fused_static_rslu_bitexact_2d():
                          [(False, 0, 0.0), (True, 0, 0.0),
                           (True, 2, 500.0)])
 def test_fused_fast2d_matches_jnp(with_islands, tracers, mu):
-    """fast2d (round 5): the fast-mode restructurings with pointwise 2D
+    """fast2d: the fast-mode restructurings with pointwise 2D
     metric planes on a bipolar grid — the full production envelope
     (grid_parameters.f90:183-417) through the fast kernel, streaming
     only the config's consumed metric rows. Compared against the jnp
     composition at f32 round-off tolerance (reassociation), with the
-    round-5 reductions at their fast-mode defaults."""
+    reductions at their fast-mode defaults."""
     basin = basinpar_flat(70, 52, curve_grid=2, rlon=27.5, rlat=41.0)
     prec = Precision.f32()
     cfg = ModelConfig(basin=basin,
@@ -159,7 +160,7 @@ def test_fused_fast2d_matches_jnp(with_islands, tracers, mu):
     ref, ok = run_steps(jax.jit(make_step(grid, cfg)), state,
                         np.float32(1.0), 30)
     assert bool(ok)
-    fs = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
+    fs = FusedSWModel(grid, cfg, 1.0,
                       static_rslu=True, steps_per_call=2, mu_const=mu,
                       share_prev=True)
     assert fs.fast2d and fs.elide_sel and fs.q4
@@ -186,7 +187,7 @@ def test_fused_fast_mode_matches_jnp(with_islands):
     ref, ok = run_steps(jax.jit(make_step(grid, cfg)), state,
                         np.float32(1.0), 30)
     assert bool(ok)
-    fs = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
+    fs = FusedSWModel(grid, cfg, 1.0,
                       static_rslu=True)
     s6, ok2 = jax.jit(lambda s: fs.run_steps(s, 30))(fs.pack(state))
     assert bool(ok2)
@@ -197,74 +198,6 @@ def test_fused_fast_mode_matches_jnp(with_islands):
         b = np.asarray(getattr(ref, name))
         scale = max(np.abs(b).max(), 1e-30)
         assert np.abs(a - b).max() / scale < 1e-5, name
-
-
-@pytest.mark.parametrize("tracers,guard", [(0, False), (2, True)])
-def test_fused_stacked_state_bitexact(tracers, guard):
-    """The stacked form carries all state fields in ONE window per tile
-    (single input + single output DMA — per-window setup dominates the
-    copy floor). Same arithmetic, different DMA layout: results match
-    the per-field-window form to within XLA's FMA-contraction slack
-    (the two graph shapes fuse differently — same caveat as the
-    steps_per_call chaining test)."""
-    nx, ny = 70, 52
-    basin = basinpar_flat(nx, ny, curve_grid=1, rlon=27.5, rlat=41.0)
-    cfg = ModelConfig(basin=basin,
-                      sw=SWConfig(use_tracers=int(tracers > 0),
-                                  tracer_num=tracers),
-                      precision=Precision.f32())
-    mask = frame_of_land_mask(nx, ny)
-    if guard:
-        mask[40:64, :] = 1        # an all-land x-strip activates it
-    grid = build_grid(basin, mask, precision=cfg.precision)
-    state = init_ocean_state(grid, cfg)
-    f1 = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
-                      static_rslu=True, steps_per_call=2,
-                      tile_guard=guard)
-    f2 = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
-                      static_rslu=True, steps_per_call=2,
-                      tile_guard=guard, stacked=True)
-    a, ok1 = f1.run_steps(f1.pack(state), 20)
-    b, ok2 = f2.run_steps(f2.pack(state), 20)
-    assert bool(ok1) and bool(ok2)
-    for i, x in enumerate(a):
-        np.testing.assert_allclose(
-            np.asarray(x), np.asarray(b[i]), rtol=1e-6, atol=1e-11,
-            err_msg=f"stacked field {i} diverged")
-    A = f1.unpack(a, state)
-    B = f2.unpack(b, state)
-    np.testing.assert_allclose(np.asarray(A.ssh), np.asarray(B.ssh),
-                               rtol=1e-6, atol=1e-11)
-
-
-def test_fused_rcp_div_close_to_exact():
-    """rcp_div swaps the momentum update's two f32 divides for an
-    approximate reciprocal + one Newton step (+1.27 vs +1.9 carriers,
-    scripts/vpu_op_probe.py). ~1 ulp per step accumulates; over 20
-    steps the trajectory must stay within f32-production slack of the
-    exact-divide form (the reference momentum update's /(bp) divide,
-    vel_ssh.f90:161-190)."""
-    nx, ny = 70, 52
-    basin = basinpar_flat(nx, ny, curve_grid=1, rlon=27.5, rlat=41.0)
-    cfg = ModelConfig(basin=basin, sw=SWConfig(use_tracers=0),
-                      precision=Precision.f32())
-    grid = build_grid(basin, frame_of_land_mask(nx, ny),
-                      precision=cfg.precision)
-    state = init_ocean_state(grid, cfg)
-    f1 = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
-                      static_rslu=True, steps_per_call=2)
-    f2 = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
-                      static_rslu=True, steps_per_call=2, rcp_div=True)
-    a, ok1 = f1.run_steps(f1.pack(state), 20)
-    b, ok2 = f2.run_steps(f2.pack(state), 20)
-    assert bool(ok1) and bool(ok2)
-    A = f1.unpack(a, state)
-    B = f2.unpack(b, state)
-    for name in ("ssh", "ubrtr", "vbrtr"):
-        x = np.asarray(getattr(A, name))
-        y = np.asarray(getattr(B, name))
-        rel = np.abs(x - y).max() / max(np.abs(x).max(), 1e-30)
-        assert rel < 1e-4, (name, rel)
 
 
 def test_fused_varying_bathymetry_matches_jnp():
@@ -285,7 +218,7 @@ def test_fused_varying_bathymetry_matches_jnp():
     ref, ok = run_steps(jax.jit(make_step(grid, cfg)), state,
                         np.float32(1.0), 30)
     assert bool(ok)
-    fs = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
+    fs = FusedSWModel(grid, cfg, 1.0,
                       static_rslu=True, steps_per_call=2)
     assert fs.hr_const is None      # plane branch in force
     s6, ok2 = jax.jit(lambda s: fs.run_steps(s, 30))(fs.pack(state))
@@ -298,77 +231,35 @@ def test_fused_varying_bathymetry_matches_jnp():
         assert np.abs(a - b).max() / scale < 1e-5, name
     # flat bathymetry takes the folded-scalar branch on the same config
     grid_f = build_grid(basin, mask, precision=prec)
-    assert FusedSWModel(grid_f, cfg, 1.0, tx=8, interpret=True,
+    assert FusedSWModel(grid_f, cfg, 1.0,
                         static_rslu=True).hr_const == 100.0
 
 
 def test_fused_availability_checks():
     grid, cfg, state = _case(1, False)
-    assert fused_available(grid, cfg)
+    assert fused_available(grid)
     # periodic -> unsupported
     grid_p = dataclasses.replace(grid, periodic_x=True)
-    assert not fused_available(grid_p, cfg)
+    assert not fused_available(grid_p)
     # bipolar (x-varying metrics) -> supported via the 2D-metrics variant
     basin2 = basinpar_flat(40, 36, curve_grid=2)
     grid2 = build_grid(basin2, frame_of_land_mask(40, 36),
                       precision=Precision.f32())
-    assert fused_available(grid2, cfg)
-    fm = FusedSWModel(grid2, cfg, 1.0, tx=8, interpret=True)
+    assert fused_available(grid2)
+    fm = FusedSWModel(grid2, cfg, 1.0)
     assert fm.metrics_2d
     # the sharded fused driver covers the full envelope: bipolar (2D
     # metric planes) and divisible periodic axes are supported; periodic
     # with padding between seam neighbours is not
-    assert fused_available(grid, cfg, sharded=True)
-    assert fused_available(grid2, cfg, sharded=True)
-    assert fused_available(grid_p, cfg, sharded=True, px=1, py=1, tx=10)
-    assert not fused_available(grid_p, cfg, sharded=True, px=1, py=1,
-                               tx=64)
-
-
-def test_fused_2d_tiled_land_elision_bitexact():
-    """ty splits the lane extent into (tx x ty) tiles with my-lane
-    margins; the wet guard then skips all-land tiles in BOTH axes (the
-    2D form of the reference's weight-0 block drop,
-    decomposition.f90:505-578). Must be bit-exact vs the full-lane
-    x-strip tiling, with the guard demonstrably active."""
-    nx, ny = 96, 300
-    basin = basinpar_flat(nx, ny, curve_grid=1, rlon=27.5, rlat=41.0)
-    cfg = ModelConfig(basin=basin,
-                      sw=SWConfig(use_tracers=1, tracer_num=2),
-                      precision=Precision.f32())
-    mask = frame_of_land_mask(nx, ny)
-    mask[:, 150:] = 1          # right half land -> all-land y-tiles
-    mask[40:64, :] = 1         # a land band -> all-land x-strips
-    rng = np.random.RandomState(7)
-    mask[2:-2, 2:-2] |= (rng.rand(nx - 4, ny - 4) < 0.1).astype(np.int32)
-    grid = build_grid(basin, mask, precision=cfg.precision)
-    state = init_ocean_state(grid, cfg)
-
-    # lane_window=False: this mask confines wet to lanes < 150, which
-    # would auto-enable the (round-5) dynamic lane windows on the
-    # x-strip control and break BITWISE comparability (~1 ulp FMA
-    # contraction); the subject here is the ty-tiled guard
-    f1 = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
-                      static_rslu=True, steps_per_call=2,
-                      lane_window=False)
-    a, ok1 = f1.run_steps(f1.pack(state), 20)
-    A = f1.unpack(a, state)
-    f2 = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
-                      static_rslu=True, steps_per_call=2, ty=128, my=128)
-    assert f2.tile_guard and f2._tile_wet2d.mean() <= 0.6, \
-        "test mask should make the 2D guard skip a big tile fraction"
-    b, ok2 = f2.run_steps(f2.pack(state), 20)
-    B = f2.unpack(b, state)
-    assert bool(ok1) and bool(ok2)
-    for name in ("ssh", "ubrtr", "vbrtr", "ff"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(A, name)), np.asarray(getattr(B, name)),
-            err_msg=f"2D-tiled {name} diverged from x-strip tiling")
+    assert fused_available(grid, sharded=True)
+    assert fused_available(grid2, sharded=True)
+    assert fused_available(grid_p, sharded=True, px=7, py=1)  # 70 = 7*10
+    assert not fused_available(grid_p, sharded=True, px=4, py=1)
 
 
 def test_fused_guard_trips():
     grid, cfg, state = _case(1, False)
-    fm = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True)
+    fm = FusedSWModel(grid, cfg, 1.0)
     bad = dataclasses.replace(state,
                               sshp=state.sshp.at[30, 30].set(2.0e4))
     s6 = fm.pack(bad)
@@ -385,7 +276,7 @@ def test_fused_guard_catches_mid_window_transient():
     grid, cfg, state = _case(1, False)
     bad = dataclasses.replace(state,
                               sshp=state.sshp.at[30, 30].set(1.2e4))
-    fm = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
+    fm = FusedSWModel(grid, cfg, 1.0,
                       static_rslu=True, steps_per_call=2)
     s6, ok = fm.run_steps(fm.pack(bad), 30)
     final = np.abs(np.asarray(fm.unpack(s6, state).ssh)).max()
@@ -395,7 +286,7 @@ def test_fused_guard_catches_mid_window_transient():
     # same through the 2D-sharded driver (per-shard kernel maxes psum'd)
     from ocean_model_arch_tpu.model.fused_sharded2d import (
         FusedSharded2DModel)
-    fs = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, tx=8, interpret=True,
+    fs = FusedSharded2DModel(grid, cfg, 1.0, 2, 2,
                              steps_per_call=2)
     _, ok2 = fs.make_runner(30)(fs.pack(bad))
     assert not bool(ok2)
@@ -423,9 +314,9 @@ def test_fused_two_steps_per_call_bitexact(static_rslu, tracers):
     grid = build_grid(basin, mask, precision=prec)
     state = init_ocean_state(grid, cfg)
 
-    f1 = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
+    f1 = FusedSWModel(grid, cfg, 1.0,
                       static_rslu=static_rslu, steps_per_call=1)
-    f2 = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
+    f2 = FusedSWModel(grid, cfg, 1.0,
                       static_rslu=static_rslu, steps_per_call=2)
     a, ok1 = f1.run_steps(f1.pack(state), 20)
     b, ok2 = f2.run_steps(f2.pack(state), 20)
@@ -433,94 +324,10 @@ def test_fused_two_steps_per_call_bitexact(static_rslu, tracers):
     for x, y in zip(a, b):
         # chaining is algebraically exact; the few-ulp slack absorbs
         # XLA's FMA contraction differing between the two graph shapes
-        np.testing.assert_allclose(np.asarray(x), np.asarray(y),
+        # (the chained layout has the wider margin: compare the domain)
+        np.testing.assert_allclose(np.asarray(fsk.extract(f1.lay, x)),
+                                   np.asarray(fsk.extract(f2.lay, y)),
                                    rtol=1e-6, atol=1e-11)
-
-
-def test_narrow_chain_matches(monkeypatch):
-    """NARROW_CHAIN mode (chained-step frame narrowing: step B runs on
-    tx+2M-8 rows) matches the default uniform graph to XLA FMA-
-    contraction slack — same per-cell arithmetic, fewer redundant margin
-    rows for the later chained steps."""
-    nx, ny = 70, 52
-    basin = basinpar_flat(nx, ny, curve_grid=1, rlon=27.5, rlat=41.0)
-    cfg = ModelConfig(basin=basin,
-                      sw=SWConfig(use_tracers=1, tracer_num=1),
-                      precision=Precision.f32())
-    mask = frame_of_land_mask(nx, ny)
-    rng = np.random.RandomState(3)
-    mask[2:-2, 2:-2] |= (rng.rand(nx - 4, ny - 4) < 0.15).astype(np.int32)
-    grid = build_grid(basin, mask, precision=cfg.precision)
-    state = init_ocean_state(grid, cfg)
-
-    def run():
-        fm = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
-                          static_rslu=True, steps_per_call=2)
-        c, ok = fm.run_steps(fm.pack(state), 20)
-        assert bool(ok)
-        return [np.asarray(fsk.extract(fm.lay, x)) for x in c]
-
-    ref = run()
-    monkeypatch.setattr(fsk, "NARROW_CHAIN", True)
-    got = run()
-    for i, (x, y) in enumerate(zip(ref, got)):
-        np.testing.assert_allclose(y, x, rtol=0, atol=2e-7, err_msg=str(i))
-
-
-def test_persistent_megakernel_matches():
-    """The persistent-VMEM megakernel (whole state in VMEM scratch
-    across a (T, n_tiles) grid; one HBM read + one write per window;
-    in-place old-row stash walk) matches the chained windowed kernel to
-    f32 round-off, tracers bitwise."""
-    nx, ny = 70, 52
-    basin = basinpar_flat(nx, ny, curve_grid=1, rlon=27.5, rlat=41.0)
-    cfg = ModelConfig(basin=basin,
-                      sw=SWConfig(use_tracers=1, tracer_num=1),
-                      precision=Precision.f32())
-    mask = frame_of_land_mask(nx, ny)
-    rng = np.random.RandomState(3)
-    mask[2:-2, 2:-2] |= (rng.rand(nx - 4, ny - 4) < 0.15).astype(np.int32)
-    grid = build_grid(basin, mask, precision=cfg.precision)
-    state = init_ocean_state(grid, cfg)
-
-    def run(**kw):
-        fm = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
-                          static_rslu=True, **kw)
-        c, ok = fm.run_steps(fm.pack(state), 20)
-        assert bool(ok)
-        return [np.asarray(fsk.extract(fm.lay, a)) for a in c]
-
-    ref = run(steps_per_call=2)
-    got = run(persistent=True)
-    for i, (x, y) in enumerate(zip(ref, got)):
-        rel = np.abs(x - y).max() / max(np.abs(x).max(), 1e-30)
-        assert rel < 1e-5, (i, rel)
-
-
-def test_resident_planes_matches():
-    """resident_planes=True (static planes as VMEM-resident const-index
-    blocks read by dynamic row-slice instead of per-tile DMA windows)
-    is bitwise-identical to the windowed form."""
-    nx, ny = 70, 52
-    basin = basinpar_flat(nx, ny, curve_grid=1, rlon=27.5, rlat=41.0)
-    cfg = ModelConfig(basin=basin,
-                      sw=SWConfig(use_tracers=1, tracer_num=1),
-                      precision=Precision.f32())
-    mask = frame_of_land_mask(nx, ny)
-    rng = np.random.RandomState(3)
-    mask[2:-2, 2:-2] |= (rng.rand(nx - 4, ny - 4) < 0.15).astype(np.int32)
-    grid = build_grid(basin, mask, precision=cfg.precision)
-    state = init_ocean_state(grid, cfg)
-
-    def run(**kw):
-        fm = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
-                          static_rslu=True, steps_per_call=2, **kw)
-        c, ok = fm.run_steps(fm.pack(state), 20)
-        assert bool(ok)
-        return [np.asarray(fsk.extract(fm.lay, a)) for a in c]
-
-    for x, y in zip(run(), run(resident_planes=True)):
-        np.testing.assert_array_equal(x, y)
 
 
 def test_round5_reductions_bitexact():
@@ -530,10 +337,10 @@ def test_round5_reductions_bitexact():
     re-fusing around the removed ops (~1 ulp/step). Land cells must stay
     EXACTLY zero (the grounding invariant the elision relies on)."""
     grid, cfg, state = _case(1, True)
-    ctl = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
+    ctl = FusedSWModel(grid, cfg, 1.0,
                        static_rslu=True, steps_per_call=2,
                        elide_sel=False, q4=False)
-    opt = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
+    opt = FusedSWModel(grid, cfg, 1.0,
                        static_rslu=True, steps_per_call=2)
     assert opt.elide_sel and opt.q4       # fast-mode defaults
     a6, ok1 = jax.jit(lambda s: ctl.run_steps(s, 30))(ctl.pack(state))
@@ -579,10 +386,10 @@ def test_round5_reductions_bitexact_tracers_visc():
     MU = 500.0
     state = dataclasses.replace(
         state, mu=jax.numpy.full_like(state.mu, MU))
-    ctl = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True, mu_const=MU,
+    ctl = FusedSWModel(grid, cfg, 1.0, mu_const=MU,
                        static_rslu=True, steps_per_call=2,
                        elide_sel=False, q4=False)
-    opt = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True, mu_const=MU,
+    opt = FusedSWModel(grid, cfg, 1.0, mu_const=MU,
                        static_rslu=True, steps_per_call=2)
     a6, ok1 = jax.jit(lambda s: ctl.run_steps(s, 30))(ctl.pack(state))
     b6, ok2 = jax.jit(lambda s: opt.run_steps(s, 30))(opt.pack(state))
@@ -594,10 +401,10 @@ def test_round5_share_prev_tolerance():
     """share_prev regroups step B's prev-depth interps through the
     filter identity (exact in real arithmetic) — f32 round-off only."""
     grid, cfg, state = _case(1, True)
-    ctl = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
+    ctl = FusedSWModel(grid, cfg, 1.0,
                        static_rslu=True, steps_per_call=2,
                        share_prev=False)
-    opt = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True,
+    opt = FusedSWModel(grid, cfg, 1.0,
                        static_rslu=True, steps_per_call=2,
                        share_prev=True)
     a6, ok1 = jax.jit(lambda s: ctl.run_steps(s, 30))(ctl.pack(state))
@@ -606,80 +413,65 @@ def test_round5_share_prev_tolerance():
     _assert_ulp_close(ctl, a6, opt, b6, rel=1e-5)
 
 
-def test_auto_tile_size_rule():
-    """Round-5 auto-tx: the largest no-extra-padding tile for pure-SW
-    x-uniform configs (chip sweep: 256 > 192 > 128 > 64 under the vmem
-    cap); tracer/viscosity/bipolar/small-pad configs stay at 64."""
-    basin = basinpar_flat(1525, 64, curve_grid=1, rlon=27.5, rlat=41.0)
-    prec = Precision.f32()
-    cfg = ModelConfig(basin=basin, sw=SWConfig(use_tracers=0),
-                      precision=prec)
-    grid = build_grid(basin, frame_of_land_mask(1525, 64),
-                      precision=prec)
-    fm = FusedSWModel(grid, cfg, 1.0, interpret=True, static_rslu=True)
-    assert fm.lay.tx == 256 and fm.lay.X == 1536
-
-    # viscosity keeps 64 (extra windows near the cap's compile floor)
-    fv = FusedSWModel(grid, cfg, 1.0, interpret=True, static_rslu=True,
-                      mu_const=100.0)
-    assert fv.lay.tx == 64
-
-    # 258 rows: tx=256 would pad 49% — stays 64
-    basin2 = basinpar_flat(258, 64, curve_grid=1, rlon=27.5, rlat=41.0)
-    cfg2 = ModelConfig(basin=basin2, sw=SWConfig(use_tracers=0),
-                      precision=prec)
-    grid2 = build_grid(basin2, frame_of_land_mask(258, 64),
-                       precision=prec)
-    f2 = FusedSWModel(grid2, cfg2, 1.0, interpret=True, static_rslu=True)
-    assert f2.lay.tx == 64
-
-    # bipolar (fast2d) picks 128 (its measured optimum; 192+ exceeds
-    # the compile envelope)
-    basin3 = basinpar_flat(1525, 64, curve_grid=2, rlon=27.5, rlat=41.0)
-    cfg3 = ModelConfig(basin=basin3, sw=SWConfig(use_tracers=0),
-                      precision=prec)
-    grid3 = build_grid(basin3, frame_of_land_mask(1525, 64),
-                       precision=prec)
-    f3 = FusedSWModel(grid3, cfg3, 1.0, interpret=True, static_rslu=True)
-    assert f3.fast2d and f3.lay.tx == 128
-
-
-def test_lane_windows_match_full_width():
-    """Round-5 dynamic lane windows: on a mask whose wet spans leave
-    whole 128-lane land columns, the windowed kernel must reproduce the
-    full-width kernel at every wet cell (and keep land/skipped lanes at
-    exact zeros)."""
-    nx, ny = 96, 300               # Ys = 384: wet confined to lanes<180
+@pytest.mark.parametrize("nx,ny", [(37, 29), (131, 23), (45, 133)])
+def test_fused_odd_extents_match_jnp(nx, ny):
+    """Extents that are no multiple of any tile or lane width: the fused
+    layout pads nothing beyond its land margins, so prime-ish and
+    lopsided grids must track the composition like the 70x52 cases."""
     basin = basinpar_flat(nx, ny, curve_grid=1, rlon=27.5, rlat=41.0)
     prec = Precision.f32()
-    cfg = ModelConfig(basin=basin, sw=SWConfig(use_tracers=0),
+    cfg = ModelConfig(basin=basin, sw=SWConfig(use_tracers=1, tracer_num=1),
                       precision=prec)
-    mask = np.ones((nx, ny), np.int32)
-    mask[2:-2, 2:178] = 0                        # wet band, lanes 2..177
-    rng = np.random.RandomState(9)
-    mask[2:-2, 2:178] |= (rng.rand(nx - 4, 176) < 0.1).astype(np.int32)
+    mask = frame_of_land_mask(nx, ny)
+    rng = np.random.RandomState(nx + ny)
+    mask[2:-2, 2:-2] |= (rng.rand(nx - 4, ny - 4) < 0.15).astype(np.int32)
     grid = build_grid(basin, mask, precision=prec)
     state = init_ocean_state(grid, cfg)
-    ctl = FusedSWModel(grid, cfg, 1.0, tx=16, interpret=True,
-                       static_rslu=True, steps_per_call=2,
-                       lane_window=False)
-    lw = FusedSWModel(grid, cfg, 1.0, tx=16, interpret=True,
-                      static_rslu=True, steps_per_call=2)
-    assert lw.lane_w is not None and lw.lane_w < lw.lay.Ys, lw.lane_w
-    a6, ok1 = jax.jit(lambda s: ctl.run_steps(s, 30))(ctl.pack(state))
-    b6, ok2 = jax.jit(lambda s: lw.run_steps(s, 30))(lw.pack(state))
-    assert bool(ok1) and bool(ok2)
-    lay = lw.lay
-    wet = np.asarray(grid.lu) > 0.5
-    for a, b in zip(a6, b6):
-        ai = np.asarray(a)[lay.margin:lay.margin + nx,
-                           lay.ypad:lay.ypad + ny]
-        bi = np.asarray(b)[lay.margin:lay.margin + nx,
-                           lay.ypad:lay.ypad + ny]
-        # exact in real arithmetic; ~1 ulp XLA FMA-contraction drift
-        scale = max(np.abs(ai[wet]).max(), 1e-30)
-        assert np.abs(ai[wet] - bi[wet]).max() / scale < 1e-6
-    for b in b6[2:]:                 # velocity land lanes exact zeros
-        bi = np.asarray(b)[lay.margin:lay.margin + nx,
-                           lay.ypad:lay.ypad + ny]
-        assert np.all(bi[~wet] == 0.0)
+    ref, ok = run_steps(jax.jit(make_step(grid, cfg)), state,
+                        np.float32(1.0), 20)
+    assert bool(ok)
+    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True, steps_per_call=2)
+    assert (fm.lay.Xs, fm.lay.Ys) == (nx + 16, ny + 4)
+    s6, ok2 = jax.jit(lambda s: fm.run_steps(s, 20))(fm.pack(state))
+    assert bool(ok2)
+    out = fm.unpack(s6, state)
+    for name in ("ssh", "ubrtr", "vbrtr", "ff"):
+        a = np.asarray(getattr(out, name))
+        b = np.asarray(getattr(ref, name))
+        rel = np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+        assert rel < 1e-5, (name, rel)
+
+
+def _custom_calls(hlo_text):
+    """Names of the custom calls in a lowered module (a Pallas/Mosaic
+    kernel lowers to one)."""
+    import re
+    return re.findall(r"custom_call_target\s*=\s*\"([^\"]+)\"", hlo_text) \
+        + re.findall(r"stablehlo\.custom_call\s+@([\w.]+)", hlo_text)
+
+
+def test_fused_step_lowers_without_custom_calls():
+    """The single-device fused step is plain XLA: lowered for the GPU,
+    its module holds no Mosaic or tpu_custom_call kernel."""
+    grid, cfg, state = _case(1, True)
+    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True, steps_per_call=2)
+    txt = jax.jit(lambda s: fm.run_steps(s, 4)).trace(
+        fm.pack(state)).lower(lowering_platforms=("cuda",)).as_text()
+    assert "while" in txt            # the scan is there ...
+    calls = _custom_calls(txt)
+    assert not [c for c in calls if "tpu" in c.lower()
+                or "mosaic" in c.lower()], calls
+
+
+def test_fused_sharded_step_lowers_without_custom_calls():
+    """Same for the fused-sharded driver on a 2x2 mesh."""
+    from ocean_model_arch_tpu.model.fused_sharded2d import (
+        FusedSharded2DModel)
+    grid, cfg, state = _case(1, True)
+    fs = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, steps_per_call=2)
+    txt = fs.make_runner(4).trace(fs.pack(state)).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "collective_permute" in txt
+    calls = _custom_calls(txt)
+    assert not [c for c in calls if "tpu" in c.lower()
+                or "mosaic" in c.lower()], calls

@@ -1,4 +1,4 @@
-"""Fused Pallas step under SPMD x-sharding vs the single-device jnp path."""
+"""Fused step under SPMD x-sharding vs the single-device jnp path."""
 
 import jax
 import numpy as np
@@ -33,7 +33,7 @@ def case():
 @pytest.mark.parametrize("n", [1, 2, 4, 8])
 def test_fused_sharded_matches(case, n):
     grid, cfg, state, ref = case
-    fm = FusedShardedSWModel(grid, cfg, 1.0, n, tx=8, interpret=True)
+    fm = FusedShardedSWModel(grid, cfg, 1.0, n)
     s6 = fm.pack(state)
     out6, ok = fm.make_runner(30)(s6)
     assert bool(ok)

@@ -1,4 +1,4 @@
-"""Fused Pallas step over full 2D meshes vs the single-device jnp path."""
+"""Fused step over full 2D meshes vs the single-device jnp path."""
 
 import jax
 import numpy as np
@@ -34,7 +34,7 @@ def case():
 @pytest.mark.parametrize("px,py", [(1, 2), (2, 2), (2, 4), (4, 2), (8, 1)])
 def test_fused_2d_mesh_matches(case, px, py):
     grid, cfg, state, ref = case
-    fm = FusedSharded2DModel(grid, cfg, 1.0, px, py, tx=8, interpret=True)
+    fm = FusedSharded2DModel(grid, cfg, 1.0, px, py)
     c = fm.pack(state)
     c, ok = fm.make_runner(30)(c)
     assert bool(ok)
@@ -51,16 +51,18 @@ def test_fused_2d_mesh_matches(case, px, py):
 
 def test_narrow_shard_rejected(case):
     grid, cfg, state, ref = case
+    # 52 columns over 8 shards leave 7 per shard, under the 8-cell
+    # margin of two chained steps per exchange
     with pytest.raises(ValueError, match="margin"):
-        FusedSharded2DModel(grid, cfg, 1.0, 1, 8, tx=8, interpret=True)
+        FusedSharded2DModel(grid, cfg, 1.0, 1, 8, steps_per_call=2)
 
 
 @pytest.mark.parametrize("static_rslu,spc", [(False, 1), (True, 2)])
 def test_fused_2d_mesh_variants(case, static_rslu, spc):
-    """The non-static raw kernel and the chained 2-steps-per-exchange
+    """The non-static raw step and the chained 2-steps-per-exchange
     mode must match the jnp reference trajectory too."""
     grid, cfg, state, ref = case
-    fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, tx=8, interpret=True,
+    fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2,
                              static_rslu=static_rslu, steps_per_call=spc)
     c, ok = fm.make_runner(30)(fm.pack(state))
     assert bool(ok)
@@ -87,7 +89,7 @@ def test_fused_2d_mesh_bipolar():
     ref, ok = run_steps(jax.jit(make_step(grid, cfg)), state,
                         np.float32(1.0), 30)
     assert bool(ok)
-    fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, tx=8, interpret=True)
+    fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2)
     assert fm.metrics_2d
     c, ok2 = fm.make_runner(30)(fm.pack(state))
     assert bool(ok2)
@@ -101,13 +103,12 @@ def test_fused_2d_mesh_bipolar():
 
 
 def test_fused_2d_mesh_weighted_cuts(case):
-    """Weighted (equal-wet) cut lines in BOTH axes + per-tile land/pad
-    elision must reproduce the reference trajectory exactly like the
-    uniform split — the applied form of the reference's 2D weighted
-    block assignment (decomposition.f90:532-669) + the weight-0 block
-    drop (:578)."""
+    """Weighted (equal-wet) cut lines in BOTH axes must reproduce the
+    reference trajectory exactly like the uniform split — the applied
+    form of the reference's 2D weighted block assignment
+    (decomposition.f90:532-669)."""
     grid, cfg, state, ref = case
-    fm = FusedSharded2DModel(grid, cfg, 1.0, 4, 2, tx=8, interpret=True,
+    fm = FusedSharded2DModel(grid, cfg, 1.0, 4, 2,
                              weighted=True)
     assert fm.weighted_x and fm.weighted_y
     assert int(fm.x_edges[-1]) == grid.nx     # cuts span exactly [0, nx)
@@ -126,33 +127,6 @@ def test_fused_2d_mesh_weighted_cuts(case):
         assert rel < 1e-5, (name, rel)
 
 
-def test_tile_guard_skips_land_band(case):
-    """A mask with an all-land x-band: the guarded kernel (skipping those
-    tiles, writing exact zeros) must match the unguarded trajectory."""
-    import dataclasses
-    basin = basinpar_flat(64, 48, curve_grid=1, rlon=27.5, rlat=41.0)
-    prec = Precision.f32()
-    cfg = ModelConfig(basin=basin, precision=prec)
-    mask = frame_of_land_mask(64, 48)
-    mask[24:40, :] = 1          # dead tiles at tx=8
-    grid = build_grid(basin, mask, precision=prec)
-    state = init_ocean_state(grid, cfg)
-    ref, ok = run_steps(jax.jit(make_step(grid, cfg)), state,
-                        np.float32(1.0), 30)
-    assert bool(ok)
-    fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, tx=8, interpret=True,
-                             tile_guard=True)
-    assert int(np.asarray(fm.tile_wet).sum()) < fm.tile_wet.size
-    c, ok2 = fm.make_runner(30)(fm.pack(state))
-    assert bool(ok2)
-    fields = fm.extract(c)
-    for name, a, b in [("ssh", fields[0], ref.ssh),
-                       ("u", fields[2], ref.ubrtr)]:
-        a, b = np.asarray(a), np.asarray(b)
-        rel = np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
-        assert rel < 1e-5, (name, rel)
-
-
 def test_fused_sharded_collective_schedule(case):
     """The fused sharded step exchanges exactly the prognostic set —
     (6+2T) fields x 4 permutes (2 strips x 2 axes) per exchange, like
@@ -160,8 +134,7 @@ def test_fused_sharded_collective_schedule(case):
     and steps_per_call=2 halves the per-model-step collective count."""
     grid, cfg, state, _ = case
     for spc in (1, 2):
-        fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, tx=8,
-                                 interpret=True, steps_per_call=spc)
+        fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, steps_per_call=spc)
         runner = fm.make_runner(8)
         txt = jax.jit(lambda c: runner(c)).lower(fm.pack(state)).as_text()
         i = txt.find("stablehlo.while")
@@ -188,7 +161,7 @@ def test_fused_2d_mesh_periodic_x(px, py):
     ref, ok = run_steps(jax.jit(make_step(grid, cfg)), state,
                         np.float32(1.0), 40)
     assert bool(ok)
-    fm = FusedSharded2DModel(grid, cfg, 1.0, px, py, tx=8, interpret=True)
+    fm = FusedSharded2DModel(grid, cfg, 1.0, px, py)
     c, ok2 = fm.make_runner(40)(fm.pack(state))
     assert bool(ok2)
     fields = fm.extract(c)
@@ -211,7 +184,7 @@ def test_fused_2d_mesh_viscosity(case):
     ref, ok = run_steps(jax.jit(make_step(grid, cfg)), state,
                         np.float32(1.0), 30)
     assert bool(ok)
-    fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, tx=8, interpret=True,
+    fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2,
                              mu_const=MU)
     c, ok2 = fm.make_runner(30)(fm.pack(state))
     assert bool(ok2)
@@ -232,7 +205,7 @@ def test_fused_2d_mesh_file_cuts(case):
     grid, cfg, state, ref = case
     xe = np.array([0, 24, 40, 70], np.int64)       # unequal on purpose
     ye = np.array([0, 30, 52], np.int64)
-    fm = FusedSharded2DModel(grid, cfg, 1.0, 3, 2, tx=8, interpret=True,
+    fm = FusedSharded2DModel(grid, cfg, 1.0, 3, 2,
                              x_edges=xe, y_edges=ye)
     assert fm.weighted_x and fm.weighted_y         # dynamic margins
     np.testing.assert_array_equal(np.asarray(fm.x_edges), xe)
@@ -251,7 +224,7 @@ def test_fused_2d_mesh_file_cuts(case):
 def test_fused_2d_mesh_bipolar_fast2d_chained():
     """fast2d on the sharded driver with chained steps + share_prev:
     margin exchange every 2 model steps, pruned metric-plane streaming,
-    round-5 reductions at defaults."""
+    reductions at defaults."""
     basin = basinpar_flat(70, 52, curve_grid=2, rlon=27.5, rlat=41.0)
     prec = Precision.f32()
     cfg = ModelConfig(basin=basin, precision=prec)
@@ -263,7 +236,7 @@ def test_fused_2d_mesh_bipolar_fast2d_chained():
     ref, ok = run_steps(jax.jit(make_step(grid, cfg)), state,
                         np.float32(1.0), 30)
     assert bool(ok)
-    fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, tx=8, interpret=True,
+    fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2,
                              steps_per_call=2, share_prev=True)
     assert fm.fast2d and fm.elide_sel and fm.q4
     c, ok2 = fm.make_runner(30)(fm.pack(state))

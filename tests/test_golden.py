@@ -1,9 +1,9 @@
-"""Golden-trajectory regression anchor (VERDICT r2 item 9).
+"""Golden-trajectory regression anchor.
 
 tests/golden_bs100.json holds committed digests of a 100-step f64 Black
 Sea run (scripts/make_golden_bs.py). Asserting against the committed
 file — not a freshly computed oracle — catches silent physics drift from
-jax/XLA upgrades or Mosaic-level kernel optimization that paired
+jax/XLA upgrades or fused-step optimization that paired
 same-version comparisons cannot see. This is the regression analog of
 the reference's sync_test discipline (syncborder_block2D_gen_test.fi):
 an exact, decomposition-independent anchor.
@@ -76,13 +76,13 @@ def test_golden_bs100_f64_jnp():
 
 
 def test_golden_bs100_f32_fused():
-    """The fused Pallas kernel (f32, interpret mode) must track the f64
-    golden within f32 accumulation error — anchoring the production
-    kernel to committed physics, not just to same-build comparisons."""
+    """The fused step (f32) must track the f64 golden within f32
+    accumulation error — anchoring the production path to committed
+    physics, not just to same-build comparisons."""
     from ocean_model_arch_tpu.model.fused import FusedSWModel
 
     grid, cfg, state = _build(Precision.f32())
-    fm = FusedSWModel(grid, cfg, 1.0, tx=32, interpret=True,
+    fm = FusedSWModel(grid, cfg, 1.0,
                       static_rslu=True, steps_per_call=2)
     s6 = fm.pack(state)
     done = 0

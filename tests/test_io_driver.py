@@ -410,12 +410,12 @@ def test_periodic_checkpointing(tmp_path):
 
 
 def test_cut_line_policy_decided_at_init(tmp_path):
-    """Round 5 (VERDICT r4 #7): non-uniform cut lines are a
-    CONSTRUCTION-time decision, not a run-time surprise. On a backend
-    where the fused-sharded path cannot be selected (CPU here),
-    mod_decomposition=2 raises at OceanModel() with the blocker named,
-    and mod_decomposition=1 constructs with an explicit
-    uniform-fallback notice."""
+    """Non-uniform cut lines are a CONSTRUCTION-time decision, not a
+    run-time surprise. Where the fused-sharded path cannot be selected
+    (an f64 config), mod_decomposition=2 raises at OceanModel() with the
+    blocker named, and mod_decomposition=1 constructs with an explicit
+    uniform-fallback notice; in f32 the same file cuts select the
+    fused-sharded path, on any backend."""
     import dataclasses
     import io
     from contextlib import redirect_stdout
@@ -440,8 +440,13 @@ def test_cut_line_policy_decided_at_init(tmp_path):
     cfg2 = dataclasses.replace(cfg, parallel=ParallelConfig(
         mod_decomposition=2, file_decomposition=cuts,
         mesh_x=2, mesh_y=1))
-    with pytest.raises(ValueError, match="CPU backend"):
+    with pytest.raises(ValueError, match="f64 precision"):
         OceanModel(cfg2, base_dir=d)
+    from ocean_model_arch_tpu.config import Precision
+    from ocean_model_arch_tpu.model.model import PATH_FUSED_SHARDED
+    om2 = OceanModel(dataclasses.replace(cfg2, precision=Precision.f32()),
+                     base_dir=d)
+    assert om2.path == PATH_FUSED_SHARDED
 
     cfg1 = dataclasses.replace(cfg, parallel=ParallelConfig(
         mod_decomposition=1, mesh_x=2, mesh_y=1))

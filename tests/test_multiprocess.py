@@ -1,7 +1,7 @@
-"""Multi-PROCESS execution test (VERDICT r2 item 1 / SURVEY §5.8).
+"""Multi-PROCESS execution test (SURVEY §5.8).
 
 Spawns N separate OS processes wired by jax.distributed (CPU backend,
-Gloo collectives) — the same code path a multi-host TPU pod uses — and
+Gloo collectives) — the same code path a multi-host mesh uses — and
 asserts the cross-process trajectory matches the single-process one
 bit-for-bit, including an orbax sharded checkpoint saved and restored
 ACROSS the process boundary mid-run. This actually leaves XLA's
@@ -99,9 +99,9 @@ def test_multiprocess_matches_single_process(nproc, tmp_path):
 def test_multiprocess_fused2d_2x2(tmp_path):
     """The PRODUCTION (fused-sharded) path across real process
     boundaries: 4 OS processes on a 2x2 mesh, so margin-strip ppermutes
-    cross processes in BOTH axes (corners ride the diagonal) — VERDICT
-    r3 weak-5. Must match the same program on a single-process virtual
-    4-device mesh bitwise."""
+    cross processes in BOTH axes (corners ride the diagonal). Must match
+    the same program on a single-process virtual 4-device mesh
+    bitwise."""
     nproc = 4
     env = {k: v for k, v in os.environ.items()
            if k not in ("XLA_FLAGS",)}
@@ -122,7 +122,7 @@ def test_multiprocess_fused2d_2x2(tmp_path):
         FusedSharded2DModel
 
     grid, cfg, state = mw.build_workload(nproc)
-    fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, tx=8, interpret=True,
+    fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2,
                              devices=jax.devices()[:4],
                              steps_per_call=2)
     c, ok = fm.make_runner(mw.N1)(fm.pack(state))
@@ -142,8 +142,8 @@ def test_multiprocess_fused2d_2x2(tmp_path):
 
 
 def test_multiprocess_fused2d_bipolar_2x2(tmp_path):
-    """fast2d (round 5) across real process boundaries: the bipolar
-    sharded kernel — pointwise pruned metric planes, reductions at
+    """fast2d across real process boundaries: the bipolar sharded
+    fused step — pointwise pruned metric planes, reductions at
     their defaults — on 4 OS processes over Gloo, bitwise vs the
     single-process virtual-mesh run."""
     nproc = 4
@@ -166,7 +166,7 @@ def test_multiprocess_fused2d_bipolar_2x2(tmp_path):
         FusedSharded2DModel
 
     grid, cfg, state = mw.build_workload(nproc, curve_grid=2)
-    fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, tx=8, interpret=True,
+    fm = FusedSharded2DModel(grid, cfg, 1.0, 2, 2,
                              devices=jax.devices()[:4],
                              steps_per_call=2)
     assert fm.fast2d

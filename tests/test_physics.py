@@ -175,7 +175,7 @@ def test_state_mu_const_detection():
     assert m.state_mu_const() is None
 
     # validate_state: kernel mu_const mismatch raises
-    fm = FusedSWModel(grid, cfg, 1.0, tx=8, interpret=True, mu_const=0.0)
+    fm = FusedSWModel(grid, cfg, 1.0, mu_const=0.0)
     fm.validate_state(state)
     bad = dataclasses.replace(state,
                               mu=np.full((24, 20), 3.0, np.float32))
